@@ -6,20 +6,28 @@
 Phases, each printed on its own line:
 1. device: needs torch.cuda; prints nvidia-smi's name and power limit.
 2. build: compiles csrc/*.cu with nvcc into the package's _build/.
-3. kernel vs twin: the fused tail kernel against its plain PyTorch twin at
-   the 1080p main-path shapes (h (128, 139, 124, 32) bf16, 8x16 tiles,
-   core_rows 135), bf16 and w8a8, RGB and BGR.  Bound: max |du8| <= 1 on
-   < 1e-3 of the bytes.
-4. engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
+3. K1 vs twin: the FSRGAN fused tail kernel (csrc/tail.cu) against its
+   plain PyTorch twin at the 1080p main-path shapes (h (128, 139, 124, 32)
+   bf16, 8x16 tiles, core_rows 135), bf16 and w8a8, RGB and BGR.  Bound:
+   max |du8| <= 1 on < 1e-3 of the bytes; w8a8 must be bit-identical.
+3b. K2 vs twin: the SRGAN fused tail kernel (csrc/tail_srgan.cu) the same
+   way, at h (128, 139, 124, 64).
+4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine
    (w8a8, calibrated on the first frame) on two alternating seeded frames.
-   Checks shape, dtype, device, that the kernel ran once per frame and the
-   twin never, that the output is not flat, the same engine with the twin
+   Checks shape, dtype, device, that K1 ran once per frame and no other
+   tail ran, that the output is not flat, the same engine with the twin
    as tail within the phase-3 bound, and, on a small input, the bf16 kernel
    tail against the plain f32 FSRGANTail module.
-5. times: engine frames/s (kernel vs twin tail), tail ms/frame (kernel vs
-   twin, and a bf16 tail module on cuDNN), body ms/frame, each beside the
-   card's name and power limit.
+4b. SRGAN engine: the full-width SRGAN generator (16 residual blocks, 64
+   filters) the same way through build_srgan_kernel_engine, with K2; then
+   the input options: the u8_input + bgr_input engine on a uint8 BGR frame
+   byte for byte against the bgr_input engine on the same frame as float
+   (w8a8), and against the float RGB engine within the whole-slice
+   envelopes (bf16 max <= 1 on < 5%; w8a8 max <= 3, > 1 on < 1%).
+5. times: per engine, frames/s (kernel vs twin tail), tail ms/frame (kernel
+   vs twin in both modes, and the bf16 tail module on cuDNN), body
+   ms/frame, each beside the card's name and power limit.
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -30,6 +38,8 @@ from __future__ import annotations
 import json
 import subprocess
 import time
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,23 +48,79 @@ from denoise_gan_tpu_torch.infer import kernel_engine as ke
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
+from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import tail as tail_ops
+from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.utils.device import require_cuda
 
 HEIGHT, WIDTH = 1080, 1920
 SEED = 0
 MAX_DIFF, MAX_FRAC = 1, 1e-3      # u8 bound, kernel vs twin
 STD_FLOOR = 8.0                   # per-channel u8 std of a non-flat frame
-MAIN_FRAMES = 4                   # frames driven through the main path
+MAIN_FRAMES = 4                   # frames driven through each main path
 TIMED_FRAMES = 10
+# SRGAN residual-block and post-conv kernels at a tenth of LeCun normal, as
+# tests/test_torch_engine_srgan.py: 16 residual adds then neither saturate
+# tanh nor amplify bf16 rounding differences between two engines' bodies.
+SRGAN_BODY_GAIN = 0.1
 
 
-def seeded_flax_tree(model: torch.nn.Module, rng: np.random.Generator):
+@dataclass(frozen=True)
+class Family:
+    """One 4x family's pieces: generator name, tail module class, body
+    channels, tail preparation, kernel wrapper, twin, their launch counts,
+    engine builder and preparation, the CUDA source, the TPU kernel it
+    replaces, and the gains of the seeded body and output conv."""
+
+    name: str
+    tail_cls: type
+    cin: int
+    prepare: Callable
+    kernel: Callable
+    twin: Callable
+    counts: dict
+    build: Callable
+    prepare_engine: Callable
+    source: str
+    replaces: str
+    body_gain: float
+    out_gain: float
+
+
+FAMILIES = [
+    Family("fsrgan", FSRGANTail, 32, tail_ops.prepare_tail,
+           tail_ops.fused_tail_u8, tail_ops.fused_tail_u8_reference,
+           tail_ops.launch_counts, ke.build_fsrgan_kernel_engine,
+           ke.prepare_fsrgan_engine, "denoise_gan_tpu_torch/csrc/tail.cu",
+           "denoise_gan_tpu/ops/pallas/tail.py:290", 1.0, 0.5),
+    Family("srgan", SRGANTail, 64, tail_srgan.prepare_tail64,
+           tail_srgan.fused_tail64_u8, tail_srgan.fused_tail64_u8_reference,
+           tail_srgan.launch_counts, ke.build_srgan_kernel_engine,
+           ke.prepare_srgan_engine,
+           "denoise_gan_tpu_torch/csrc/tail_srgan.cu",
+           "denoise_gan_tpu/ops/pallas/tail_srgan.py:151", SRGAN_BODY_GAIN,
+           1.0),
+]
+
+
+def all_counts() -> dict[str, int]:
+    return {k: v for f in FAMILIES for k, v in f.counts.items()}
+
+
+def reset_counts() -> None:
+    for f in FAMILIES:
+        for k in f.counts:
+            f.counts[k] = 0
+
+
+def seeded_flax_tree(model: torch.nn.Module, rng: np.random.Generator,
+                     body_gain: float = 1.0, out_gain: float = 0.5):
     """Flax-layout (params, batch_stats) trees for `model` from numpy:
     LeCun-normal kernels (HWIO), small biases, BN statistics near identity,
-    PReLU slopes in [0.05, 0.3].  The output conv is scaled down so tanh
-    stays out of saturation."""
+    PReLU slopes in [0.05, 0.3].  Body kernels after the stem are scaled by
+    body_gain, and the output conv by out_gain, so that tanh stays out of
+    saturation and the frame is not flat."""
     params, stats = {}, {}
     for name, t in model.state_dict().items():
         *path, leaf = name.split(".")
@@ -63,7 +129,9 @@ def seeded_flax_tree(model: torch.nn.Module, rng: np.random.Generator):
             o, i, kh, kw = shape
             a = rng.standard_normal((kh, kw, i, o)) / np.sqrt(kh * kw * i)
             if path[-1] == "out_conv":
-                a *= 0.5
+                a *= out_gain
+            elif path[0] == "body" and path[-1] != "Conv_0":
+                a *= body_gain
             leaf = "kernel"
         elif leaf == "alpha":
             a = rng.uniform(0.05, 0.3, shape)
@@ -97,10 +165,12 @@ def u8_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int(d.max()), float((d > 0).float().mean())
 
 
-def check_bound(what: str, a: torch.Tensor, b: torch.Tensor) -> int:
+def check_bound(what: str, a: torch.Tensor, b: torch.Tensor,
+                exact: bool = False) -> int:
+    """Kernel vs twin: within MAX_DIFF on < MAX_FRAC, or (exact) equal."""
     dmax, frac = u8_diff(a, b)
     print(f"  {what}: max |du8| {dmax}, bytes differing {frac:.3e}")
-    if dmax > MAX_DIFF or frac >= MAX_FRAC:
+    if dmax > MAX_DIFF or frac >= MAX_FRAC or (exact and dmax):
         raise AssertionError(f"{what}: kernel and twin disagree (max "
                              f"{dmax}, fraction {frac:.3e})")
     return dmax
@@ -133,6 +203,137 @@ def engine_fps(run, frames, n: int) -> float:
     return n / (time.perf_counter() - t0)
 
 
+def seeded_model(fam: Family, rng, dev):
+    model = build_generator(fam.name, device=dev)
+    return from_jax_params(model, *seeded_flax_tree(
+        model, rng, fam.body_gain, fam.out_gain))
+
+
+def kernel_vs_twin(label: str, fam: Family, model, dev):
+    """Phase 3/3b: the family's kernel vs its twin on seeded h at the
+    1080p main-path shapes.  Returns (h, grid, tail weights by mode, max
+    error)."""
+    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = (torch.randn((ny * nx, cr + 4, tail_ops.T, fam.cin), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    tails = {"bf16": fam.prepare(model.tail),
+             "w8a8": fam.prepare(model.tail, q8_calib=h[:16])}
+    print(f"phase {label} {fam.kernel.__name__} vs twin: h "
+          f"{tuple(h.shape)} bf16, grid {ny}x{nx}, core_rows {cr}")
+    max_err = 0
+    for mode, tw in tails.items():
+        for bgr in (False, True):
+            args = (h, tw, ny, nx, HEIGHT, WIDTH, bgr)
+            got = fam.kernel(*args)
+            torch.cuda.synchronize()
+            want = fam.twin(*args)
+            torch.cuda.synchronize()
+            assert got.shape == (4 * HEIGHT, 4 * WIDTH, 3)
+            max_err = max(max_err, check_bound(
+                f"{mode} {'bgr' if bgr else 'rgb'}", got, want,
+                exact=mode == "w8a8"))
+    return h, (ny, nx, cr), tails, max_err
+
+
+def check_frames(outs) -> None:
+    """Engine outputs: shape, dtype, device, not flat, deterministic."""
+    for out in outs:
+        if out.shape != (4 * HEIGHT, 4 * WIDTH, 3) or \
+                out.dtype != torch.uint8 or out.device.type != "cuda":
+            raise AssertionError(f"bad engine output {tuple(out.shape)} "
+                                 f"{out.dtype} {out.device}")
+    std = outs[1].float().std(dim=(0, 1))
+    print(f"  per-channel std {[round(float(s), 2) for s in std]} "
+          f"(floor {STD_FLOOR}), mean "
+          f"{[round(float(m), 2) for m in outs[1].float().mean(dim=(0, 1))]}")
+    if float(std.min()) <= STD_FLOOR:
+        raise AssertionError("engine output is flat")
+    if u8_diff(outs[0], outs[2]) != (0, 0.0):
+        raise AssertionError("same frame, different output")
+
+
+def main_path(label: str, fam: Family, model, frames) -> dict[str, int]:
+    """Phase 4/4b: the family's engine, as a user builds it, on
+    MAIN_FRAMES alternating frames; every tail's launch count is zeroed just
+    before and read just after.  Returns those counts."""
+    engine = fam.build(model, HEIGHT, WIDTH, q8_calib_frame=frames[0])
+    reset_counts()
+    outs = [engine(frames[i % 2]) for i in range(MAIN_FRAMES)]
+    torch.cuda.synchronize()
+    launches = all_counts()
+    print(f"phase {label} {fam.name} engine: {MAIN_FRAMES} frames "
+          f"{HEIGHT}x{WIDTH} -> {tuple(outs[0].shape)} {outs[0].dtype} on "
+          f"{outs[0].device}; launches {launches}")
+    want = {k: MAIN_FRAMES if k == fam.kernel.__name__ else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"main path did not run {fam.kernel.__name__} "
+                             f"once per frame and nothing else: {launches}")
+    check_frames(outs)
+    return launches
+
+
+def engine_pair(fam: Family, model, frames):
+    """The engine with the kernel tail and with the twin tail, on one
+    calibration; the two agree within the kernel-vs-twin bound."""
+    body, tw, brc = fam.prepare_engine(model, HEIGHT, WIDTH,
+                                       q8_calib_frame=frames[0])
+    k_eng = ke.build_kernel_engine(body, tw, HEIGHT, WIDTH, brc=brc,
+                                   tail_fn=fam.kernel)
+    t_eng = ke.build_kernel_engine(body, tw, HEIGHT, WIDTH, brc=brc,
+                                   tail_fn=fam.twin)
+    k_out, t_out = k_eng(frames[1]), t_eng(frames[1])
+    torch.cuda.synchronize()
+    err = check_bound("engine, kernel vs twin tail", k_out, t_out,
+                      exact=True)
+    return body, k_eng, t_eng, err
+
+
+def check_input_options(fam: Family, model, frames) -> None:
+    """u8_input and bgr_input on the card, on frames[1] as uint8.
+    u8: the u8_input + bgr_input engine on the uint8 BGR frame equals, byte
+    for byte, the bgr_input engine on the same frame as float (u8 / 255,
+    divided on the host: CUDA divides by a scalar as a multiply by its
+    reciprocal), both w8a8 calibrated on frames[0]: the u8 levels normalise
+    to the bf16 values the float path rounds them to, so the tiles are
+    equal and all that follows.  BGR: the u8 BGR engine against the float
+    RGB engine, within the whole-slice envelopes of
+    tests/test_torch_engine_srgan.py (bf16 max <= 1 on < 5%; w8a8 max <= 3,
+    > 1 on < 1%): the flipped stem sums its input channels in another order
+    and the body carries the differences on."""
+    frame_u8 = (frames[1] * 255 + 0.5).to(torch.uint8)
+    bgr_u8 = frame_u8.flip(-1).contiguous()
+    levels = torch.from_numpy(np.arange(256, dtype=np.float32)
+                              / np.float32(255)).to(frame_u8.device)
+    rgb01, bgr01 = levels[frame_u8.long()], levels[bgr_u8.long()]
+
+    def run(frame, **kw):
+        return fam.build(model, HEIGHT, WIDTH, **kw)(frame)
+
+    q8 = dict(q8_calib_frame=frames[0])
+    u8 = {"w8a8": run(bgr_u8, u8_input=True, bgr_input=True, **q8),
+          "bf16": run(bgr_u8, u8_input=True, bgr_input=True)}
+    f32 = run(bgr01, bgr_input=True, **q8)
+    rgb = {"w8a8": run(rgb01, **q8), "bf16": run(rgb01)}
+    torch.cuda.synchronize()
+    dmax, frac = u8_diff(u8["w8a8"], f32)
+    print(f"  u8 BGR input engine vs float BGR input engine (w8a8): max "
+          f"|du8| {dmax}, bytes differing {frac:.3e}")
+    if dmax:
+        raise AssertionError("u8 input engine differs from the float one")
+    for mode, (max_d, over, max_frac) in (("bf16", (1, 0, 0.05)),
+                                          ("w8a8", (3, 1, 0.01))):
+        d = (u8[mode].int() - rgb[mode].int()).abs()
+        dmax, frac0 = int(d.max()), float((d > 0).float().mean())
+        frac1 = float((d > 1).float().mean())
+        print(f"  {mode} u8 BGR input engine vs float RGB engine: max |du8| "
+              f"{dmax}, > 0 on {frac0:.3e}, > 1 on {frac1:.3e}")
+        if dmax > max_d or float((d > over).float().mean()) >= max_frac:
+            raise AssertionError(f"{mode} u8 BGR input engine disagrees "
+                                 "with the float RGB engine")
+
+
 def check_plain_tail(model, rng, dev, height: int = 135,
                      width: int = 240) -> None:
     """Small input: the bf16 kernel tail vs the plain f32 FSRGANTail module
@@ -160,6 +361,39 @@ def check_plain_tail(model, rng, dev, height: int = 135,
         raise AssertionError("kernel tail disagrees with the plain tail")
 
 
+def times(fam: Family, model, frames, h, grid, tails, body,
+          k_eng, t_eng) -> dict[str, tuple[float, float]]:
+    """Phase 5 for one family; returns {mode: (kernel ms, twin ms)}."""
+    ny, nx, cr = grid
+    twin_reps = 1 if fam.cin > 32 else 3
+    fps_k = engine_fps(k_eng, frames, TIMED_FRAMES)
+    fps_t = engine_fps(t_eng, frames, twin_reps)
+    print(f"  {fam.name} engine 1080p->4K w8a8: kernel tail {fps_k:.2f} "
+          f"frames/s, twin tail {fps_t:.2f} frames/s")
+    tiles = ke._tiles(frames[1], ny, nx, cr)
+    with torch.inference_mode():
+        body_ms = cuda_ms(lambda: body(tiles), 5)
+    print(f"  {fam.name} body (bf16, {ny * nx} tiles): {body_ms:.2f} "
+          f"ms/frame")
+    ms = {}
+    for mode, tw in tails.items():
+        args = (h, tw, ny, nx, HEIGHT, WIDTH)
+        ms[mode] = (cuda_ms(lambda: fam.kernel(*args), 10),
+                    cuda_ms(lambda: fam.twin(*args), twin_reps))
+        print(f"  {fam.name} tail {mode}: kernel {ms[mode][0]:.2f} ms/frame,"
+              f" twin {ms[mode][1]:.2f} ms/frame")
+    # The twin is built to be exact, not fast; the bf16 tail module on
+    # cuDNN (per tile, without crop-stitch or u8) shows what a library tail
+    # costs.
+    cudnn_tail = fam.tail_cls(dtype=torch.bfloat16).to(h.device).eval()
+    cudnn_tail.load_state_dict(model.tail.state_dict())
+    with torch.inference_mode():
+        cudnn_ms = cuda_ms(lambda: cudnn_tail(h), 3)
+    print(f"  {fam.name} tail, bf16 {fam.tail_cls.__name__} module on cuDNN "
+          f"(no crop, no u8): {cudnn_ms:.2f} ms/frame")
+    return ms
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -172,7 +406,6 @@ def main() -> None:
     print(smi)
     print(f"phase 1 device: {kind}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    card = f"[{smi}]"
 
     # ---- phase 2: build
     t0 = time.perf_counter()
@@ -184,104 +417,41 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    model = build_generator("fsrgan", device=dev)
-    from_jax_params(model, *seeded_flax_tree(model, rng))
+    models = {f.name: seeded_model(f, rng, dev) for f in FAMILIES}
 
-    # ---- phase 3: kernel vs twin at the main-path shapes
-    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    h = (torch.randn((ny * nx, cr + 4, tail_ops.T, 32), generator=gen,
-                     device=dev) * 0.5).to(torch.bfloat16)
-    tails = {"bf16": tail_ops.prepare_tail(model.tail),
-             "w8a8": tail_ops.prepare_tail(model.tail, q8_calib=h[:16])}
-    print(f"phase 3 kernel vs twin: h {tuple(h.shape)} bf16, grid "
-          f"{ny}x{nx}, core_rows {cr}")
-    max_err = 0
-    for mode, tw in tails.items():
-        for bgr in (False, True):
-            args = (h, tw, ny, nx, HEIGHT, WIDTH, bgr)
-            got = tail_ops.fused_tail_u8(*args)
-            torch.cuda.synchronize()
-            want = tail_ops.fused_tail_u8_reference(*args)
-            torch.cuda.synchronize()
-            assert got.shape == (4 * HEIGHT, 4 * WIDTH, 3)
-            max_err = max(max_err, check_bound(
-                f"{mode} {'bgr' if bgr else 'rgb'}", got, want))
+    # ---- phase 3 / 3b: kernels vs twins at the main-path shapes
+    checked = {f.name: kernel_vs_twin(label, f, models[f.name], dev)
+               for label, f in zip(("3", "3b"), FAMILIES)}
 
-    # ---- phase 4: the main path, 1080p -> 4K
+    # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
-    engine = ke.build_fsrgan_kernel_engine(model, HEIGHT, WIDTH,
-                                           q8_calib_frame=frames[0])
-    for k in tail_ops.launch_counts:
-        tail_ops.launch_counts[k] = 0
-    outs = [engine(frames[i % 2]) for i in range(MAIN_FRAMES)]
-    torch.cuda.synchronize()
-    launches = dict(tail_ops.launch_counts)
-    print(f"phase 4 engine: {MAIN_FRAMES} frames {HEIGHT}x{WIDTH} -> "
-          f"{tuple(outs[0].shape)} {outs[0].dtype} on {outs[0].device}; "
-          f"launches {launches}")
-    if launches["fused_tail_u8"] != MAIN_FRAMES or \
-            launches["fused_tail_u8_reference"] != 0:
-        raise AssertionError(f"main path did not run the kernel once per "
-                             f"frame: {launches}")
-    for out in outs:
-        if out.shape != (4 * HEIGHT, 4 * WIDTH, 3) or \
-                out.dtype != torch.uint8 or out.device.type != "cuda":
-            raise AssertionError(f"bad engine output {tuple(out.shape)} "
-                                 f"{out.dtype} {out.device}")
-    std = outs[1].float().std(dim=(0, 1))
-    print(f"  per-channel std {[round(float(s), 2) for s in std]} "
-          f"(floor {STD_FLOOR}), mean "
-          f"{[round(float(m), 2) for m in outs[1].float().mean(dim=(0, 1))]}")
-    if float(std.min()) <= STD_FLOOR:
-        raise AssertionError("engine output is flat")
-    if u8_diff(outs[0], outs[2]) != (0, 0.0):
-        raise AssertionError("same frame, different output")
-    body, tw, brc = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH,
-                                             q8_calib_frame=frames[0])
-    k_eng = ke.build_kernel_engine(body, tw, HEIGHT, WIDTH, brc=brc)
-    t_eng = ke.build_kernel_engine(
-        body, tw, HEIGHT, WIDTH, brc=brc,
-        tail_fn=tail_ops.fused_tail_u8_reference)
-    k_out, t_out = k_eng(frames[1]), t_eng(frames[1])
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_bound("engine, kernel vs twin tail",
-                                       k_out, t_out))
-    check_plain_tail(model, rng, dev)
+    launches, pairs, errs = {}, {}, {}
+    for label, fam in zip(("4", "4b"), FAMILIES):
+        model = models[fam.name]
+        launches[fam.name] = main_path(label, fam, model, frames)
+        pairs[fam.name] = engine_pair(fam, model, frames)
+        errs[fam.name] = max(checked[fam.name][3], pairs[fam.name][3])
+        if fam.name == "fsrgan":
+            check_plain_tail(model, rng, dev)
+        else:
+            check_input_options(fam, model, frames)
 
     # ---- phase 5: times
-    fps_k = engine_fps(k_eng, frames, TIMED_FRAMES)
-    fps_t = engine_fps(t_eng, frames, 3)
-    print(f"phase 5 times {card}:")
-    print(f"  engine 1080p->4K w8a8: kernel tail {fps_k:.2f} frames/s, "
-          f"twin tail {fps_t:.2f} frames/s")
-    tiles = ke._tiles(frames[1], ny, nx, cr)
-    with torch.inference_mode():
-        body_ms = cuda_ms(lambda: body(tiles), 5)
-    print(f"  body (bf16, 128 tiles): {body_ms:.2f} ms/frame")
+    print(f"phase 5 times [{smi}]:")
     ms = {}
-    for mode, tw_m in tails.items():
-        args = (h, tw_m, ny, nx, HEIGHT, WIDTH)
-        ms[mode] = (cuda_ms(lambda: tail_ops.fused_tail_u8(*args), 10),
-                    cuda_ms(lambda: tail_ops.fused_tail_u8_reference(*args),
-                            3))
-        print(f"  tail {mode}: kernel {ms[mode][0]:.2f} ms/frame, twin "
-              f"{ms[mode][1]:.2f} ms/frame")
-    # The twin is built to be exact, not fast; a bf16 FSRGANTail on cuDNN
-    # (per tile, without crop-stitch or u8) shows what a library tail costs.
-    cudnn_tail = FSRGANTail(dtype=torch.bfloat16).to(dev).eval()
-    cudnn_tail.load_state_dict(model.tail.state_dict())
-    with torch.inference_mode():
-        cudnn_ms = cuda_ms(lambda: cudnn_tail(h), 3)
-    print(f"  tail, bf16 FSRGANTail module on cuDNN (no crop, no u8): "
-          f"{cudnn_ms:.2f} ms/frame")
+    for fam in FAMILIES:
+        h, grid, tails, _ = checked[fam.name]
+        body, k_eng, t_eng, _ = pairs[fam.name]
+        ms[fam.name] = times(fam, models[fam.name], frames, h, grid,
+                             tails, body, k_eng, t_eng)
 
     record = {"kernels": [{
-        "name": "fused_tail_u8", "route": "cuda",
-        "source": "denoise_gan_tpu_torch/csrc/tail.cu",
-        "replaces": "denoise_gan_tpu/ops/pallas/tail.py:290",
-        "launches": launches["fused_tail_u8"], "max_abs_err": max_err,
-        "ms": ms["w8a8"][0], "plain_ms": ms["w8a8"][1]}]}
+        "name": fam.kernel.__name__, "route": "cuda", "source": fam.source,
+        "replaces": fam.replaces,
+        "launches": launches[fam.name][fam.kernel.__name__],
+        "max_abs_err": errs[fam.name],
+        "ms": ms[fam.name]["w8a8"][0], "plain_ms": ms[fam.name]["w8a8"][1]}
+        for fam in FAMILIES]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,11 +32,13 @@
 //            PReLU; stored bf16 (bf16 mode) or int8 = q(u1 / su1) (w8a8)
 //   stage 2: up2 at (2BR+2) x (2BC+2) positions of the 2x grid, 128
 //            channels, + b2 (or int32 * s2 + b2), PReLU; stored on the 4x
-//            grid as R: bf16, or int8 = q(R / sr)
+//            grid as R: bf16, or int8 = q(R / sr) and q(bf16(R) / sr)
 //   stage 3: output conv at 4BR x 4BC fine pixels, + b3 (or int32 * s3 +
 //            b3), tanh, bf16 rounding, u8 = trunc(clip((v+1)*127.5+0.5)).
 // q(x) rounds half to even and clips to +-127.  u1 and R are quantised
-// from f32 in every tap.
+// from f32, except in the two output-conv taps that reach the neighbouring
+// 4-column group (tile-local output column 4j, tap dx = 0, and 4j+3, tap
+// dx = 2): they read q(bf16(R) / sr), as the JAX kernel (tail.py:439-453).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,12 +46,14 @@
 
 #include <type_traits>
 
+#include "tail_common.cuh"
+
 namespace {
+
+using namespace tail;
 
 constexpr int CIN = 32;            // body channels
 constexpr int C1 = 128;            // up1/up2 conv outputs (4 phases x 32)
-constexpr int T = 124;             // tile width
-constexpr int CORE = 120;          // tile core width
 constexpr int BR = 5;              // core rows per block (135 = 27 x 5)
 constexpr int BC = 8;              // core cols per block (120 = 15 x 8)
 constexpr int NT = 256;            // threads per block
@@ -77,44 +81,17 @@ struct Layout {
   static constexpr int h_bytes = HR * HC * CIN * 2;
   static constexpr int u1_bytes = NP1 * C1 * (int)sizeof(act_t);
   static constexpr int r_bytes = FR * FC * CIN * (int)sizeof(act_t);
+  // w8a8: R quantised from its bf16 copy, for the edge taps of stage 3
+  static constexpr int rb_bytes = Q8 ? r_bytes : 0;
   static constexpr int h_off = w3_bytes;
   static constexpr int u1_off = h_off + h_bytes;
   static constexpr int r_off = u1_off + u1_bytes;
-  static constexpr int total = r_off + r_bytes;
-  static_assert(h_off % 16 == 0 && u1_off % 16 == 0 && r_off % 16 == 0,
+  static constexpr int rb_off = r_off + r_bytes;
+  static constexpr int total = rb_off + rb_bytes;
+  static_assert(h_off % 16 == 0 && u1_off % 16 == 0 && r_off % 16 == 0 &&
+                    rb_off % 16 == 0,
                 "16-byte shared loads need aligned buffers");
 };
-
-__device__ __forceinline__ float bf_lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-__device__ __forceinline__ void unpack8(const uint4 v, float* f) {
-  f[0] = bf_lo(v.x); f[1] = bf_hi(v.x); f[2] = bf_lo(v.y); f[3] = bf_hi(v.y);
-  f[4] = bf_lo(v.z); f[5] = bf_hi(v.z); f[6] = bf_lo(v.w); f[7] = bf_hi(v.w);
-}
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float prelu(float v, float a) {
-  return v >= 0.f ? v : a * v;
-}
-__device__ __forceinline__ int quant(float v) {
-  return (int)fminf(fmaxf(rintf(v), -127.f), 127.f);
-}
-__device__ __forceinline__ uint32_t pack_s8x4(float a, float b, float c,
-                                              float d) {
-  return (uint32_t)(quant(a) & 0xff) | ((uint32_t)(quant(b) & 0xff) << 8) |
-         ((uint32_t)(quant(c) & 0xff) << 16) |
-         ((uint32_t)(quant(d) & 0xff) << 24);
-}
-// int32 * scale + bias with two roundings, as the twin computes it
-__device__ __forceinline__ float dequant(int acc, float s, float b) {
-  return __fadd_rn(__fmul_rn((float)acc, s), b);
-}
 
 template <bool Q8>
 __global__ void __launch_bounds__(NT, 2)
@@ -132,6 +109,7 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L::h_off);
   act_t* u1s = reinterpret_cast<act_t*>(smem + L::u1_off);
   act_t* rs = reinterpret_cast<act_t*>(smem + L::r_off);
+  act_t* rbs = reinterpret_cast<act_t*>(smem + L::rb_off);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * BC;   // first core col (core coords)
@@ -214,8 +192,7 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
           v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & 31]);
         if constexpr (Q8) {
           *reinterpret_cast<uint32_t*>(u1s + p * C1 + o) =
-              pack_s8x4(v[0] * inv_su1, v[1] * inv_su1, v[2] * inv_su1,
-                        v[3] * inv_su1);
+              pack_s8x4(v, inv_su1);
         } else {
           *reinterpret_cast<uint2*>(u1s + p * C1 + o) =
               make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
@@ -318,13 +295,15 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
             else z = acc[m][q] + b2[q0 + q];
             v[q] = prelu(z, a2[t0 + q]);
           }
-          act_t* dst = rs + ((2 * Y + pa) * FC + 2 * X + pb) * CIN + t0;
+          const int at = ((2 * Y + pa) * FC + 2 * X + pb) * CIN + t0;
           if constexpr (Q8) {
-            *reinterpret_cast<uint32_t*>(dst) =
-                pack_s8x4(v[0] * inv_sr, v[1] * inv_sr, v[2] * inv_sr,
-                          v[3] * inv_sr);
+            *reinterpret_cast<uint32_t*>(rs + at) = pack_s8x4(v, inv_sr);
+            float vb[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) vb[q] = round_bf16(v[q]);
+            *reinterpret_cast<uint32_t*>(rbs + at) = pack_s8x4(vb, inv_sr);
           } else {
-            *reinterpret_cast<uint2*>(dst) =
+            *reinterpret_cast<uint2*>(rs + at) =
                 make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
           }
         }
@@ -334,7 +313,8 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
   __syncthreads();
 
   // ---- stage 3: output conv on the 4x grid.  Output (oy, ox) = tile fine
-  // (8+4*r0+oy, 8+4*c0+ox) reads R (oy+1+dy, ox+1+dx).
+  // (8+4*r0+oy, 8+4*c0+ox) reads R (oy+1+dy, ox+1+dx); its tile-local
+  // column is 4j + (ox & 3).
   const int ty = n / nx, tx = n % nx;
 #pragma unroll 1
   for (int m = 0; m < P3; ++m) {
@@ -352,8 +332,11 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
       int acc[3] = {0, 0, 0};
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap) {
-        const act_t* src =
-            rs + ((oy + 1 + tap / 3) * FC + ox + 1 + tap % 3) * CIN;
+        const int dx = tap % 3;
+        const bool edge = (dx == 0 && (ox & 3) == 0) ||
+                          (dx == 2 && (ox & 3) == 3);
+        const act_t* src = (edge ? rbs : rs) +
+                           ((oy + 1 + tap / 3) * FC + ox + 1 + dx) * CIN;
 #pragma unroll
         for (int c16 = 0; c16 < CIN; c16 += 16) {
           const uint4 a = *reinterpret_cast<const uint4*>(src + c16);
@@ -402,12 +385,7 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
     }
     uint8_t* dst = out + ((size_t)gy * 4 * width + gx) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float t = __bfloat162float(__float2bfloat16_rn(tanhf(v[c])));
-      float u = __fadd_rn(__fmul_rn(__fadd_rn(t, 1.0f), 127.5f), 0.5f);
-      u = fminf(fmaxf(u, 0.f), 255.f);
-      dst[bgr ? 2 - c : c] = (uint8_t)(int)u;
-    }
+    for (int c = 0; c < 3; ++c) dst[bgr ? 2 - c : c] = to_u8(v[c]);
   }
 }
 

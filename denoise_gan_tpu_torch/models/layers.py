@@ -1,5 +1,5 @@
-"""PyTorch counterparts of the Flax building blocks the FSRGAN generator uses
-(denoise_gan_tpu/models/layers.py:43-134).
+"""PyTorch counterparts of the Flax building blocks the FSRGAN and SRGAN
+generators use (denoise_gan_tpu/models/layers.py:33-134).
 
 Layers take NCHW tensors, PyTorch's convolution layout; the generator keeps
 them in channels_last memory, so the storage is NHWC as on the JAX side.
@@ -12,12 +12,33 @@ compute dtype: parameters are cast to it at each call, as Flax's
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from denoise_gan_tpu_torch.ops.image import depth_to_space_nchw
+
+# An initialiser fills a parameter in place from a CPU torch.Generator.
+Init = Callable[[torch.Tensor, "torch.Generator | None"], None]
+
+
+def glorot_uniform(w: torch.Tensor, generator=None) -> None:
+    """Keras' default conv kernel init, for an OIHW kernel."""
+    o, i, kh, kw = w.shape
+    limit = math.sqrt(6.0 / ((i + o) * kh * kw))
+    w.uniform_(-limit, limit, generator=generator)
+
+
+def normal02(w: torch.Tensor, generator=None) -> None:
+    """N(0, 0.02), the SRGAN kernels' init (layers.py:33-35)."""
+    w.normal_(0.0, 0.02, generator=generator)
+
+
+def gamma_normal02(w: torch.Tensor, generator=None) -> None:
+    """N(1, 0.02), the SRGAN BatchNorm scales' init (layers.py:38-40)."""
+    w.normal_(1.0, 0.02, generator=generator)
 
 
 def _channel(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -42,10 +63,14 @@ class BatchNorm(nn.Module):
     the running statistics fold to ``mul``/``add`` in f32, then apply in the
     compute dtype.  Train mode is not ported yet and raises."""
 
-    def __init__(self, channels: int, epsilon: float = 1e-3):
+    def __init__(self, channels: int, epsilon: float = 1e-3,
+                 gamma_init: Init | None = None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(channels))
+        if gamma_init is not None:
+            gamma_init(self.scale.data, generator)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
@@ -62,10 +87,13 @@ class BatchNorm(nn.Module):
 class Conv(nn.Module):
     """Stride-1 'SAME' convolution with Keras defaults: glorot-uniform
     kernel, zero bias (layers.py:106-117).  ``groups=channels`` is the
-    depthwise form."""
+    depthwise form; ``use_bias=False`` has no ``bias`` parameter at all, as
+    Flax's."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
-                 groups: int = 1, dtype: torch.dtype | None = None,
+                 groups: int = 1, use_bias: bool = True,
+                 kernel_init: Init = glorot_uniform,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if kernel_size % 2 != 1:
@@ -73,12 +101,9 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.groups = groups
         w = torch.empty(cout, cin // groups, kernel_size, kernel_size)
-        receptive = kernel_size * kernel_size
-        limit = math.sqrt(6.0 / ((cin // groups) * receptive
-                                 + cout * receptive))
-        w.uniform_(-limit, limit, generator=generator)
+        kernel_init(w, generator)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The bias is added after the conv, as Flax does: in bf16 the conv
@@ -88,12 +113,14 @@ class Conv(nn.Module):
         k = self.weight.shape[-1]
         y = F.conv2d(x.to(dt), self.weight.to(dt), padding=k // 2,
                      groups=self.groups)
-        return y + _channel(self.bias, dt)
+        return y if self.bias is None else y + _channel(self.bias, dt)
 
 
 def conv3x3(cin: int, cout: int, dtype: torch.dtype | None = None,
-            generator: torch.Generator | None = None) -> Conv:
-    return Conv(cin, cout, 3, dtype=dtype, generator=generator)
+            generator: torch.Generator | None = None, use_bias: bool = True,
+            kernel_init: Init = glorot_uniform) -> Conv:
+    return Conv(cin, cout, 3, use_bias=use_bias, kernel_init=kernel_init,
+                dtype=dtype, generator=generator)
 
 
 class PixelShuffleUp(nn.Module):
@@ -101,9 +128,11 @@ class PixelShuffleUp(nn.Module):
 
     def __init__(self, cin: int, filters: int,
                  dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 kernel_init: Init = glorot_uniform):
         super().__init__()
-        self.Conv_0 = conv3x3(cin, filters, dtype, generator)
+        self.Conv_0 = conv3x3(cin, filters, dtype, generator,
+                              kernel_init=kernel_init)
         self.PReLU_0 = PReLU(filters // 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, at first use, into ``_build/`` beside
-this package's sources (ignored by git).  The library's name carries a hash
-of the sources and flags, so an edit rebuilds it.  It is loaded with
-ctypes; each C entry point returns the launch's ``cudaGetLastError()``.
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, at first use, into ``_build/`` beside this
+package's sources (ignored by git).  The library's name carries a hash of the
+sources and flags, so an edit rebuilds it.  It is loaded with ctypes; each C
+entry point returns the launch's ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the C entry points and their argument types: every tail kernel takes
+# (h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3, inv_su1, inv_sr, q8,
+#  n_tiles, nx, core_rows, height, width, bgr, stream)
+_TAIL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_float] * 2
+              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+ENTRY_POINTS = {"dgt_tail_u8": _TAIL_ARGS, "dgt_tail64_u8": _TAIL_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -42,6 +49,20 @@ def find_nvcc() -> str:
                        "built")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or RuntimeError with
+    the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"{' '.join(cmd)} failed with code "
+                               f"{p.returncode}:\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> Path:
     """Compile csrc/*.cu unless a library of the same sources exists."""
     global build_log
@@ -55,14 +76,17 @@ def build_library() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_log = log
     os.replace(tmp, lib)
     return lib
 
@@ -72,8 +96,8 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dgt_tail_u8.argtypes = [vp] * 12 + [f, f] + [i] * 7 + [vp]
-        lib.dgt_tail_u8.restype = i
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _lib = lib
     return _lib

@@ -1,7 +1,8 @@
-"""The fused tail CUDA kernel (csrc/tail.cu) against its plain PyTorch twin on
-the card, at small and ragged geometries that chip_smoke.py's 1080p shapes do
-not reach: core_rows not a multiple of the kernel's 5-row band, and frames
-that end inside the last tile row and column.
+"""The fused tail CUDA kernels (csrc/tail.cu for FSRGAN, csrc/tail_srgan.cu
+for SRGAN) against their plain PyTorch twins on the card, at small and ragged
+geometries that chip_smoke.py's 1080p shapes do not reach: core_rows not a
+multiple of the kernels' 5-row band, and frames that end inside the last tile
+row and column.
 
 These tests need a CUDA GPU and nvcc; without them they skip.  tests/
 conftest.py imports jax and hides CUDA devices, so on a machine with a card
@@ -11,7 +12,10 @@ run them without it:
 
 The port runs in a child process (tests/torch_process.py).  Bound as
 chip_smoke.py's: max |du8| <= 1 on < 1e-3 of the bytes (the two sum in
-different orders).
+different orders).  In w8a8 mode every sum after up1 is an exact integer and
+up1 sums in the twin's order, so kernel and twin agree byte for byte; for
+FSRGAN that includes the output-conv taps that read R quantised from bf16
+(tile-local output columns 4j and 4j+3, a quarter of each of their taps).
 """
 
 import pytest
@@ -38,14 +42,37 @@ def port():
         yield call
 
 
-@pytest.mark.parametrize("bgr", [False, True], ids=["rgb", "bgr"])
-@pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
-def test_kernel_matches_twin(port, geom, mode, bgr):
-    ny, nx, cr, height, width = geom
-    r = port("cuda_kernel_vs_twin", ny, nx, cr, height, width, mode, bgr)
+def _check(r, height, width):
     assert r["shape"] == r["want_shape"] == (4 * height, 4 * width, 3)
     assert r["dtype"] == "torch.uint8" and r["device"] == "cuda"
     assert r["launches"] == 1
     assert r["max_diff"] <= 1 and r["frac_diff"] < 1e-3, r
     assert r["std_min"] > 5                    # not a flat frame
+
+
+@pytest.mark.parametrize("bgr", [False, True], ids=["rgb", "bgr"])
+@pytest.mark.parametrize("mode", ["bf16", "w8a8"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_kernel_matches_twin(port, geom, mode, bgr):
+    ny, nx, cr, height, width = geom
+    _check(port("cuda_kernel_vs_twin", ny, nx, cr, height, width, mode, bgr),
+           height, width)
+
+
+@pytest.mark.parametrize("bgr", [False, True], ids=["rgb", "bgr"])
+@pytest.mark.parametrize("mode", ["bf16", "w8a8"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_srgan_kernel_matches_twin(port, geom, mode, bgr):
+    ny, nx, cr, height, width = geom
+    _check(port("cuda_kernel_vs_twin", ny, nx, cr, height, width, mode, bgr,
+                family="srgan"), height, width)
+
+
+@pytest.mark.parametrize("family", ["fsrgan", "srgan"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_w8a8_kernel_is_bit_identical(port, geom, family):
+    ny, nx, cr, height, width = geom
+    r = port("cuda_kernel_vs_twin", ny, nx, cr, height, width, "w8a8", False,
+             family=family)
+    _check(r, height, width)
+    assert r["max_diff"] == 0, r

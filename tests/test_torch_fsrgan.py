@@ -142,4 +142,4 @@ def test_build_generator_seeded(port):
     for name in a:
         np.testing.assert_array_equal(a[name], b[name])
     with pytest.raises(NotImplementedError, match="not ported"):
-        port("build_family", "srgan")
+        port("build_family", "pix2pix")

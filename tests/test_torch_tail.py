@@ -3,10 +3,9 @@ its wrapper) vs the JAX package's Pallas tail, run in interpret mode as
 tests/test_pallas_tail.py runs it.  The port runs in a child process
 (tests/torch_process.py).
 
-Envelopes on the u8 output: bf16 mode max |diff| <= 1 on < 1e-3 of the
-bytes (summation order only); w8a8 mode the JAX package's own w8a8 envelope
-(tests/test_pallas_tail.py:160-164, max <= 2, > 1 on < 5e-3), since the port
-quantises R from f32 where the JAX kernel quantises some taps from bf16.
+On the u8 output: bf16 mode max |diff| <= 1 on < 1e-3 of the bytes
+(summation order only); w8a8 mode byte for byte, since its sums after up1
+are exact integers and the twin quantises R where the JAX kernel does.
 """
 
 import jax
@@ -129,11 +128,10 @@ def test_twin_matches_jax_kernel(port, tail_params, h_tiles, mode):
                        NX * jtail.CORE, q8=q8)
     assert got_q8 == q8
     assert got.shape == want.shape and got.dtype == np.uint8
-    dmax, _, frac1 = _u8_diff(got, want)
+    dmax, frac0, _ = _u8_diff(got, want)
     if q8:
-        assert dmax <= 2 and frac1 < 5e-3, (dmax, frac1)
+        assert dmax == 0, (dmax, frac0)
     else:
-        _, frac0, _ = _u8_diff(got, want)
         assert dmax <= 1 and frac0 < 1e-3, (dmax, frac0)
     assert got.std(axis=(0, 1)).min() > 5      # not a constant image
 

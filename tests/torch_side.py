@@ -21,10 +21,12 @@ from denoise_gan_tpu_torch.infer import kernel_engine as tke
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models import fsrgan as tfsrgan
+from denoise_gan_tpu_torch.models import srgan as tsrgan
 from denoise_gan_tpu_torch.models.layers import BatchNorm
 from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import image as timage
 from denoise_gan_tpu_torch.ops import tail as ttail
+from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
 from denoise_gan_tpu_torch.utils.device import require_cuda, resolve_device
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
@@ -142,52 +144,108 @@ def build_family(family):
     build_generator(family)
 
 
+def srgan_forward(part, params, stats, x, dt, blocks=16):
+    """The port's SRGAN `part` ("body", "tail" or "generator", with
+    `blocks` residual blocks) loaded from Flax trees, on x."""
+    dtype = DTYPES[dt]
+    model = {"body": lambda: tsrgan.SRGANBody(blocks, dtype=dtype),
+             "tail": lambda: tsrgan.SRGANTail(dtype=dtype),
+             "generator": lambda: tsrgan.SRGANGenerator(
+                 num_res_blocks=blocks, dtype=dtype)}[part]()
+    from_jax_params(model.eval(), params, stats)
+    with torch.no_grad():
+        return _np(model(torch.from_numpy(x)).float())
+
+
+def load_srgan(params, stats, scale=4, blocks=16):
+    """from_jax_params into a fresh SRGAN generator (raises on a mismatch);
+    its state dict as numpy."""
+    model = from_jax_params(tsrgan.SRGANGenerator(scale, blocks), params,
+                            stats)
+    return {k: _np(v) for k, v in model.state_dict().items()}
+
+
+def seeded_srgan(seed):
+    """Two SRGAN generators built from one seed: (training flag of the
+    first, both state dicts as numpy)."""
+    a, b = (build_generator("srgan",
+                            generator=torch.Generator().manual_seed(seed))
+            for _ in range(2))
+    return (a.training, {k: _np(v) for k, v in a.state_dict().items()},
+            {k: _np(v) for k, v in b.state_dict().items()})
+
+
 # ---------------------------------------------------------------------------
-# ops/tail.py
+# ops/tail.py, ops/tail_srgan.py
 
-def _tail(params):
-    return from_jax_params(tfsrgan.FSRGANTail().eval(), params)
+# family: (tail module, body channels, prepare, kernel wrapper, twin,
+#          launch counts)
+_FAMILIES = {
+    "fsrgan": (tfsrgan.FSRGANTail, 32, ttail.prepare_tail,
+               ttail.fused_tail_u8, ttail.fused_tail_u8_reference,
+               ttail.launch_counts),
+    "srgan": (tsrgan.SRGANTail, 64, ttail_srgan.prepare_tail64,
+              ttail_srgan.fused_tail64_u8,
+              ttail_srgan.fused_tail64_u8_reference,
+              ttail_srgan.launch_counts),
+}
 
 
-def q8_weights(params):
-    return ttail.prep_weights_q8(ttail.prep_weights(_tail(params)))
+def _tail(params, family="fsrgan"):
+    return from_jax_params(_FAMILIES[family][0]().eval(), params)
 
 
-def calibrate(params, h):
+def q8_weights(params, family="fsrgan"):
+    return ttail.prep_weights_q8(ttail.prep_weights(_tail(params, family)))
+
+
+def calibrate(params, h, family="fsrgan"):
     """(calibrate_tail_scales at Q8_MARGIN, Q8_MARGIN)."""
-    scales = ttail.calibrate_tail_scales(_tail(params), _bf16(h),
+    scales = ttail.calibrate_tail_scales(_tail(params, family), _bf16(h),
                                          margin=ttail.Q8_MARGIN)
     return scales, ttail.Q8_MARGIN
 
 
-def twin(params, h, ny, nx, height, width, q8=False, bgr=False):
+def twin(params, h, ny, nx, height, width, q8=False, bgr=False,
+         family="fsrgan"):
     """The twin's u8 frame, and whether the weights were w8a8; w8a8
     calibrates on h itself."""
+    _, _, prepare, _, twin_fn, _ = _FAMILIES[family]
     ht = _bf16(h)
-    tw = ttail.prepare_tail(_tail(params), q8_calib=ht if q8 else None)
-    out = ttail.fused_tail_u8_reference(ht, tw, ny, nx, height, width, bgr)
-    return out.numpy(), tw.q8
+    tw = prepare(_tail(params, family), q8_calib=ht if q8 else None)
+    return twin_fn(ht, tw, ny, nx, height, width, bgr).numpy(), tw.q8
 
 
-def wrapper_on_cpu(params, h, ny, nx, height, width):
+def wrapper_on_cpu(params, h, ny, nx, height, width, family="fsrgan"):
     """(wrapper's frame, twin's frame, launch-count increments)."""
+    _, _, prepare, kernel, twin_fn, counts = _FAMILIES[family]
     ht = _bf16(h)
-    tw = ttail.prepare_tail(_tail(params))
-    before = dict(ttail.launch_counts)
-    got = ttail.fused_tail_u8(ht, tw, ny, nx, height, width)
-    want = ttail.fused_tail_u8_reference(ht, tw, ny, nx, height, width)
+    tw = prepare(_tail(params, family))
+    before = dict(counts)
+    got = kernel(ht, tw, ny, nx, height, width)
+    want = twin_fn(ht, tw, ny, nx, height, width)
     return got.numpy(), want.numpy(), {
-        k: ttail.launch_counts[k] - before[k] for k in before}
+        k: counts[k] - before[k] for k in before}
 
 
-def wrapper_off_cpu_without_cuda(params, ny, nx, core_rows, height, width):
+def wrapper_off_cpu_without_cuda(params, ny, nx, core_rows, height, width,
+                                 family="fsrgan"):
     """Call the wrapper on a tensor that is not on the CPU, with CUDA
     reading as absent: raises."""
-    tw = ttail.prepare_tail(_tail(params), device="meta")
-    h = torch.empty((ny * nx, core_rows + 4, ttail.T, 32),
+    _, cin, prepare, kernel, _, _ = _FAMILIES[family]
+    tw = prepare(_tail(params, family), device="meta")
+    h = torch.empty((ny * nx, core_rows + 4, ttail.T, cin),
                     dtype=torch.bfloat16, device="meta")
     with _no_cuda():
-        ttail.fused_tail_u8(h, tw, ny, nx, height, width)
+        kernel(h, tw, ny, nx, height, width)
+
+
+def prepare_tail64_of(family, scale=4):
+    """prepare_tail64 on a seeded tail of `family` (SRGAN at `scale`);
+    raises for a tail it does not take."""
+    tail = (tsrgan.SRGANTail(scale) if family == "srgan"
+            else tfsrgan.FSRGANTail())
+    ttail_srgan.prepare_tail64(tail.eval())
 
 
 def cuda_requests_without_gpu():
@@ -227,12 +285,19 @@ def build_without_nvcc(empty_dir):
             setattr(_build, k, v)
 
 
-def wrapper_bad_input(params, h, ny, nx, height, width, bad):
+def wrapper_bad_input(params, h, ny, nx, height, width, bad,
+                      family="fsrgan"):
     """Call the wrapper with one input spoilt as `bad` names; raises."""
+    _, _, prepare, kernel, _, _ = _FAMILIES[family]
     ht = _bf16(h)
-    args = dict(h=ht, tw=ttail.prepare_tail(_tail(params)), ny=ny, nx=nx,
+    args = dict(h=ht, tw=prepare(_tail(params, family)), ny=ny, nx=nx,
                 height=height, width=width)
-    if bad == "dtype":
+    if bad == "weights":      # the other family's tail weights
+        other = "srgan" if family == "fsrgan" else "fsrgan"
+        gen = torch.Generator().manual_seed(0)
+        args["tw"] = _FAMILIES[other][2](
+            _FAMILIES[other][0](generator=gen).eval())
+    elif bad == "dtype":
         args["h"] = ht.float()
     elif bad == "width":
         args["h"] = ht[:, :, :120]
@@ -242,28 +307,49 @@ def wrapper_bad_input(params, h, ny, nx, height, width, bad):
         args["width"] = width + 1
     elif bad == "layout":
         args["h"] = ht.transpose(1, 2).contiguous().transpose(1, 2)
-    ttail.fused_tail_u8(**args)
+    kernel(**args)
 
 
 # ---------------------------------------------------------------------------
 # infer/kernel_engine.py
 
-def _generator(params, stats):
-    return from_jax_params(tfsrgan.FSRGANGenerator().eval(), params, stats)
+_BUILDERS = {"fsrgan": (tfsrgan.FSRGANGenerator,
+                        tke.build_fsrgan_kernel_engine),
+             "srgan": (tsrgan.SRGANGenerator, tke.build_srgan_kernel_engine)}
+
+
+def _generator(params, stats, family="fsrgan"):
+    return from_jax_params(_BUILDERS[family][0]().eval(), params, stats)
+
+
+def _launch_counts():
+    return {**ttail.launch_counts, **ttail_srgan.launch_counts}
 
 
 def engine_frames(params, stats, height, width, brc, frames, calib=None,
-                  bgr=False):
-    """build_fsrgan_kernel_engine's u8 output for each frame (w8a8 when
-    `calib`, the index of the calibration frame, is given), and the
-    launch-count increments."""
-    q8_frame = None if calib is None else torch.from_numpy(frames[calib])
-    run = tke.build_fsrgan_kernel_engine(_generator(params, stats), height,
-                                         width, brc=brc,
-                                         q8_calib_frame=q8_frame, bgr=bgr)
-    before = dict(ttail.launch_counts)
+                  bgr=False, family="fsrgan", u8_input=False,
+                  bgr_input=False, calib_frames=None):
+    """The family's kernel engine's u8 output for each frame (float [0, 1],
+    or uint8 with u8_input), and the increments of both tails' launch
+    counts.  w8a8 when `calib`, the index of the calibration frame in
+    `calib_frames` (default `frames`), is given."""
+    calib_frames = frames if calib_frames is None else calib_frames
+    q8_frame = None if calib is None else torch.from_numpy(
+        calib_frames[calib])
+    run = _BUILDERS[family][1](_generator(params, stats, family), height,
+                               width, brc=brc, q8_calib_frame=q8_frame,
+                               bgr=bgr, u8_input=u8_input,
+                               bgr_input=bgr_input)
+    before = _launch_counts()
     outs = [run(torch.from_numpy(f)).numpy() for f in frames]
-    return outs, {k: ttail.launch_counts[k] - before[k] for k in before}
+    after = _launch_counts()
+    return outs, {k: after[k] - before[k] for k in before}
+
+
+def engine_tiles(frame, height, width, brc):
+    """The engine's bf16 input tiles of a float or uint8 frame, as f32."""
+    ny, nx, cr = tke.plan_grid(height, width, brc)
+    return _np(tke._tiles(torch.from_numpy(frame), ny, nx, cr))
 
 
 def engine_wrong_frame(params, stats, height, width, brc):
@@ -283,7 +369,7 @@ def body_samples(params, stats, height, width, brc, frames):
 
 
 # ---------------------------------------------------------------------------
-# csrc/tail.cu on the card
+# csrc/tail.cu and csrc/tail_srgan.cu on the card
 
 _CUDA_TAILS = {}
 
@@ -292,40 +378,48 @@ def cuda_available():
     return torch.cuda.is_available()
 
 
-def _cuda_tails():
-    """bf16 and w8a8 TailWeights of a seeded tail on the card."""
-    if not _CUDA_TAILS:
+def _cuda_tails(family):
+    """bf16 and w8a8 TailWeights of a seeded tail of `family` on the card.
+    Biases and slopes are redrawn; SRGAN's N(0, 0.02) kernels are redrawn
+    at N(0, 1/fan_in) so that the output is not flat."""
+    if family not in _CUDA_TAILS:
+        cls, cin, prepare = _FAMILIES[family][:3]
         dev = torch.device("cuda")
         gen = torch.Generator().manual_seed(0)
-        tail = tfsrgan.FSRGANTail(generator=gen).eval()
+        tail = cls(generator=gen).eval()
         with torch.no_grad():
             for name, p in tail.named_parameters():
                 if name.endswith("alpha"):
                     p.uniform_(0.05, 0.3, generator=gen)
                 elif name.endswith("bias"):
                     p.normal_(0.0, 0.05, generator=gen)
+                elif family == "srgan":
+                    p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
         tail = tail.to(dev)
-        calib = (torch.randn((4, 28, ttail.T, 32), generator=gen)
+        calib = (torch.randn((4, 28, ttail.T, cin), generator=gen)
                  * 0.5).to(dev, torch.bfloat16)
-        _CUDA_TAILS.update(bf16=ttail.prepare_tail(tail),
-                           w8a8=ttail.prepare_tail(tail, q8_calib=calib))
-    return _CUDA_TAILS
+        _CUDA_TAILS[family] = dict(bf16=prepare(tail),
+                                   w8a8=prepare(tail, q8_calib=calib))
+    return _CUDA_TAILS[family]
 
 
-def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr):
-    """The kernel and the twin on one seeded h on the card: a dict of the
-    kernel's output shape, dtype and device, its launch-count increment,
-    max |du8| and the share of bytes that differ, and the kernel output's
-    smallest per-channel std."""
+def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr,
+                        family="fsrgan"):
+    """The tail kernel of `family` and its twin on one seeded h on the card:
+    a dict of the kernel's output shape, dtype and device, its launch-count
+    increment, max |du8| and the share of bytes that differ, and the kernel
+    output's smallest per-channel std."""
+    _, cin, _, kernel, twin_fn, counts = _FAMILIES[family]
+    name = kernel.__name__
     gen = torch.Generator().manual_seed(core_rows * 1000 + width)
-    h = (torch.randn((ny * nx, core_rows + 4, ttail.T, 32), generator=gen)
+    h = (torch.randn((ny * nx, core_rows + 4, ttail.T, cin), generator=gen)
          * 0.5).to("cuda", torch.bfloat16)
-    args = (h, _cuda_tails()[mode], ny, nx, height, width, bgr)
-    before = ttail.launch_counts["fused_tail_u8"]
-    got = ttail.fused_tail_u8(*args)
+    args = (h, _cuda_tails(family)[mode], ny, nx, height, width, bgr)
+    before = counts[name]
+    got = kernel(*args)
     torch.cuda.synchronize()
-    launches = ttail.launch_counts["fused_tail_u8"] - before
-    want = ttail.fused_tail_u8_reference(*args)
+    launches = counts[name] - before
+    want = twin_fn(*args)
     d = (got.int() - want.int()).abs()
     return dict(shape=tuple(got.shape), want_shape=tuple(want.shape),
                 dtype=str(got.dtype), device=got.device.type,
