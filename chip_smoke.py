@@ -12,6 +12,11 @@ Phases, each printed on its own line:
    max |du8| <= 1 on < 1e-3 of the bytes; w8a8 must be bit-identical.
 3b. K2 vs twin: the SRGAN fused tail kernel (csrc/tail_srgan.cu) the same
    way, at h (128, 139, 124, 64).
+3c. K3 vs its plain version: the fused inverted residual (csrc/mbconv.cu)
+   at the 1080p body shape x (128, 139, 124, 32) bf16, with and without
+   the expand, on the seeded FSRGAN blocks (non-zero BN statistics, so
+   relu(be) > 0 and the zero ring of the expanded tensor matters).  Target:
+   bit-identical; bound: within 1 bf16 ulp on < 1e-3 of the outputs.
 4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine
    (w8a8, calibrated on the first frame) on two alternating seeded frames.
@@ -25,9 +30,25 @@ Phases, each printed on its own line:
    byte for byte against the bgr_input engine on the same frame as float
    (w8a8), and against the float RGB engine within the whole-slice
    envelopes (bf16 max <= 1 on < 5%; w8a8 max <= 3, > 1 on < 1%).
+4c. FSRGAN engine with the K3 body: prepare_mbconv_fsrgan_engine (the
+   body's six inverted residuals as K3 launches, the w8a8 tail calibrated
+   on its output) wired by build_kernel_engine, on the same frames.  Checks
+   that K3 ran 6 times and K1 once per frame and nothing else, the output
+   as phase 4, and the engine against the plain-body engine on the same
+   weights and tail: both bf16 bodies round away from the f32 body (the K3
+   body once per block, the plain one after every op), so the bound is the
+   plain-body engine's own distance from the engine with the f32 body (TF32
+   off): the K3-body engine differs from that engine on no more bytes, and
+   by more than one level on no more bytes.  Then the same engine with K3's
+   plain version as its blocks, within the phase-3c bound.
 5. times: per engine, frames/s (kernel vs twin tail), tail ms/frame (kernel
    vs twin in both modes, and the bf16 tail module on cuDNN), body
-   ms/frame, each beside the card's name and power limit.
+   ms/frame; K3's six launches per frame vs its plain version and the six
+   plain InvertedResidual modules on cuDNN, and the K3-body engine's
+   frames/s beside the plain-body engine's; each beside the card's name and
+   power limit.  Each kernel's bound (the larger of its bytes over 3.35 TB/s
+   and its operations over the tensor-core peak for their type) is computed
+   from the main path's shapes.
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -50,6 +71,7 @@ from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops import _build
+from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.utils.device import require_cuda
@@ -64,6 +86,10 @@ TIMED_FRAMES = 10
 # tests/test_torch_engine_srgan.py: 16 residual adds then neither saturate
 # tanh nor amplify bf16 rounding differences between two engines' bodies.
 SRGAN_BODY_GAIN = 0.1
+# H100 SXM peaks (NVIDIA's data sheet, dense): the bounds' rates
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+INT8_OP_S = 1979e12
 
 
 @dataclass(frozen=True)
@@ -104,14 +130,55 @@ FAMILIES = [
 ]
 
 
+COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts]
+
+
 def all_counts() -> dict[str, int]:
-    return {k: v for f in FAMILIES for k, v in f.counts.items()}
+    return {k: v for counts in COUNTS for k, v in counts.items()}
 
 
 def reset_counts() -> None:
-    for f in FAMILIES:
-        for k in f.counts:
-            f.counts[k] = 0
+    for counts in COUNTS:
+        for k in counts:
+            counts[k] = 0
+
+
+def bound(n_bytes: float, ops: list[tuple[float, float]]
+          ) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate and
+    the sum of ops / rate over the (ops, rate) pairs."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = sum(o / r for o, r in ops)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def tail_bound(h: torch.Tensor, tw, cin: int) -> tuple[float, str]:
+    """Bound of a w8a8 tail at 1080p: h read once, the 4K frame written
+    once; per core coarse pixel, up1 (9C x 4C multiply-adds) in bf16, up2
+    (four 2x pixels of 9C x 4C) and the output conv (16 fine pixels of
+    k*k*C x 3) in int8."""
+    k2 = tw.w3.shape[1] // cin                   # w8a8 w3 is (3, k*k*C)
+    px = HEIGHT * WIDTH
+    n_bytes = h.numel() * h.element_size() + 16 * px * 3
+    return bound(n_bytes, [(2 * px * 36 * cin * cin, BF16_FLOP_S),
+                           (2 * px * (144 * cin * cin + 48 * k2 * cin),
+                            INT8_OP_S)])
+
+
+def k3_bound(x: torch.Tensor, blocks) -> tuple[float, str]:
+    """Bound of the body's K3 launches per frame: each block reads x and
+    its weights once and writes its output once; C*E + 9E + E*C
+    multiply-adds per pixel in bf16."""
+    px, c = x.numel() // x.shape[-1], x.shape[-1]
+    n_bytes, ops = 0, 0
+    for w in blocks:
+        weights = [w.we, w.be, w.wd, w.bd, w.wp, w.bp]
+        n_bytes += 2 * x.numel() * x.element_size() + sum(
+            t.numel() * t.element_size() for t in weights if t is not None)
+        e = w.e_dim
+        ops += 2 * px * ((c * e if w.has_expand else 0) + 9 * e + e * c)
+    return bound(n_bytes, [(ops, BF16_FLOP_S)])
 
 
 def seeded_flax_tree(model: torch.nn.Module, rng: np.random.Generator,
@@ -234,6 +301,121 @@ def kernel_vs_twin(label: str, fam: Family, model, dev):
                 f"{mode} {'bgr' if bgr else 'rgb'}", got, want,
                 exact=mode == "w8a8"))
     return h, (ny, nx, cr), tails, max_err
+
+
+def k3_vs_plain(model, dev):
+    """Phase 3c: K3 vs its plain version at the 1080p body shape, on the
+    seeded model's block 0 (no expand) and block 1 (expand).  Returns (x,
+    the six blocks' weights, max |error|, whether bit-identical)."""
+    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
+    body = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH)[0]
+    blocks = mbconv.build_mbconv_fsrgan_body(body).blocks
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = (torch.randn((ny * nx, cr + 4, tail_ops.T, mbconv.C), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    ring = float((blocks[1].be > 0).float().mean())
+    print(f"phase 3c fused_mbconv vs plain: x {tuple(x.shape)} bf16, "
+          f"be > 0 on {ring:.2f} of block 1's channels")
+    if ring == 0:
+        raise AssertionError("seeded be <= 0: the ring is not exercised")
+    max_err, exact = 0.0, True
+    for i in (0, 1):
+        got = mbconv.fused_mbconv(x, blocks[i])
+        torch.cuda.synchronize()
+        want = mbconv.fused_mbconv_reference(x, blocks[i])
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        d = (g - w).abs()
+        # one bf16 ulp at |want|: 2**(floor(log2|want|) - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                         - 7)
+        frac = float((d > 0).float().mean())
+        print(f"  block {i} ({'expand' if blocks[i].has_expand else 'no expand'}"
+              f"): max |d| {float(d.max()):.3e}, outputs differing "
+              f"{frac:.3e}, max in ulps {float((d / ulp).max()):.1f}")
+        if bool((d > ulp).any()) or frac >= MAX_FRAC:
+            raise AssertionError(f"K3 block {i} disagrees with its plain "
+                                 "version")
+        max_err = max(max_err, float(d.max()))
+        exact = exact and frac == 0
+    return x, blocks, max_err, exact
+
+
+def k3_main_path(model, frames, exact: bool):
+    """Phase 4c: the K3-body engine as a user builds it, on MAIN_FRAMES
+    alternating frames, counts zeroed just before and read just after; then
+    against the plain-body engine and the plain-K3 engine on the same
+    weights and tail.  Returns (launches, K3 engine, plain-body engine)."""
+    body, tw, brc = ke.prepare_mbconv_fsrgan_engine(
+        model, HEIGHT, WIDTH, q8_calib_frame=frames[0])
+    engine = ke.build_kernel_engine(body, tw, HEIGHT, WIDTH, brc=brc)
+    reset_counts()
+    outs = [engine(frames[i % 2]) for i in range(MAIN_FRAMES)]
+    torch.cuda.synchronize()
+    launches = all_counts()
+    print(f"phase 4c fsrgan engine, K3 body: {MAIN_FRAMES} frames "
+          f"{HEIGHT}x{WIDTH} -> {tuple(outs[0].shape)} {outs[0].dtype} on "
+          f"{outs[0].device}; launches {launches}")
+    want = {k: 0 for k in launches}
+    want.update(fused_mbconv=6 * MAIN_FRAMES, fused_tail_u8=MAIN_FRAMES)
+    if launches != want:
+        raise AssertionError("the K3-body engine did not run K3 6 times and "
+                             f"K1 once per frame, and nothing else: {launches}")
+    check_frames(outs)
+    plain = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH, brc)[0]
+    p_eng = ke.build_kernel_engine(plain, tw, HEIGHT, WIDTH, brc=brc)
+    r_eng = ke.build_kernel_engine(
+        mbconv.build_mbconv_fsrgan_body(plain, mbconv.fused_mbconv_reference),
+        tw, HEIGHT, WIDTH, brc=brc)
+
+    def f32_body(tiles):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return model.body(tiles.float()).to(torch.bfloat16)
+
+    f_eng = ke.build_kernel_engine(f32_body, tw, HEIGHT, WIDTH, brc=brc)
+    p_out, r_out, f_out = (e(frames[1]) for e in (p_eng, r_eng, f_eng))
+    torch.cuda.synchronize()
+    shares = {}
+    for name, a, b in (("K3-body engine vs plain-body engine", outs[1], p_out),
+                       ("K3-body engine vs f32-body engine", outs[1], f_out),
+                       ("plain-body engine vs f32-body engine", p_out, f_out)):
+        d = (a.int() - b.int()).abs()
+        shares[name] = (float((d > 0).float().mean()),
+                        float((d > 1).float().mean()))
+        print(f"  {name} (w8a8, same tail): max |du8| {int(d.max())}, > 0 on "
+              f"{shares[name][0]:.3e}, > 1 on {shares[name][1]:.3e}")
+    k3_f32 = shares["K3-body engine vs f32-body engine"]
+    plain_f32 = shares["plain-body engine vs f32-body engine"]
+    if k3_f32[0] > plain_f32[0] or k3_f32[1] > plain_f32[1]:
+        raise AssertionError("the K3-body engine is farther from the f32-body "
+                             "engine than the plain-body engine is")
+    check_bound("K3-body engine vs plain-K3-body engine", outs[1], r_out,
+                exact=exact)
+    return launches, engine, p_eng
+
+
+def k3_times(model, frames, x, blocks, k_eng, p_eng):
+    """Phase 5 for K3: (kernel ms, plain ms) per frame of six blocks, the
+    six plain InvertedResidual modules on cuDNN, and both engines' fps."""
+    reps = 10
+    k_ms = cuda_ms(lambda: [mbconv.fused_mbconv(x, w) for w in blocks], reps)
+    p_ms = cuda_ms(lambda: [mbconv.fused_mbconv_reference(x, w)
+                            for w in blocks], 1)
+    body = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH)[0]
+    xc = x.permute(0, 3, 1, 2)
+    mods = [getattr(body, f"InvertedResidual_{i}") for i in range(len(blocks))]
+    with torch.inference_mode():
+        lib_ms = cuda_ms(lambda: [m(xc) for m in mods], reps)
+    b_ms, b_by = k3_bound(x, blocks)
+    print(f"  K3, {len(blocks)} launches at x {tuple(x.shape)}: kernel "
+          f"{k_ms:.2f} ms/frame, plain version {p_ms:.2f}, plain "
+          f"InvertedResidual modules (bf16, cuDNN) {lib_ms:.2f}, bound "
+          f"{b_ms:.3f} ({b_by})")
+    fps_k = engine_fps(k_eng, frames, TIMED_FRAMES)
+    fps_p = engine_fps(p_eng, frames, TIMED_FRAMES)
+    print(f"  fsrgan engine 1080p->4K w8a8: K3 body {fps_k:.2f} frames/s, "
+          f"plain body {fps_p:.2f} frames/s")
+    return k_ms, p_ms, lib_ms, b_ms, b_by
 
 
 def check_frames(outs) -> None:
@@ -419,9 +601,10 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     models = {f.name: seeded_model(f, rng, dev) for f in FAMILIES}
 
-    # ---- phase 3 / 3b: kernels vs twins at the main-path shapes
+    # ---- phase 3 / 3b / 3c: kernels vs twins at the main-path shapes
     checked = {f.name: kernel_vs_twin(label, f, models[f.name], dev)
                for label, f in zip(("3", "3b"), FAMILIES)}
+    x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
 
     # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
@@ -435,6 +618,9 @@ def main() -> None:
             check_plain_tail(model, rng, dev)
         else:
             check_input_options(fam, model, frames)
+    # ---- phase 4c: the FSRGAN engine with the K3 body
+    launches3, k3_eng, plain_eng = k3_main_path(models["fsrgan"], frames,
+                                                exact3)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")
@@ -445,13 +631,28 @@ def main() -> None:
         ms[fam.name] = times(fam, models[fam.name], frames, h, grid,
                              tails, body, k_eng, t_eng)
 
-    record = {"kernels": [{
-        "name": fam.kernel.__name__, "route": "cuda", "source": fam.source,
-        "replaces": fam.replaces,
-        "launches": launches[fam.name][fam.kernel.__name__],
-        "max_abs_err": errs[fam.name],
-        "ms": ms[fam.name]["w8a8"][0], "plain_ms": ms[fam.name]["w8a8"][1]}
-        for fam in FAMILIES]}
+    k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
+
+    kernels = []
+    for fam in FAMILIES:
+        h, _, tails, _ = checked[fam.name]
+        b_ms, b_by = tail_bound(h, tails["w8a8"], fam.cin)
+        print(f"  {fam.name} tail w8a8 bound {b_ms:.3f} ms/frame ({b_by})")
+        kernels.append({
+            "name": fam.kernel.__name__, "route": "cuda",
+            "source": fam.source, "replaces": fam.replaces,
+            "launches": launches[fam.name][fam.kernel.__name__],
+            "max_abs_err": errs[fam.name],
+            "ms": ms[fam.name]["w8a8"][0], "plain_ms": ms[fam.name]["w8a8"][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    kernels.append({
+        "name": "fused_mbconv", "route": "cuda",
+        "source": "denoise_gan_tpu_torch/csrc/mbconv.cu",
+        "replaces": "tools/exp_mbconv_kernel.py:37",
+        "launches": launches3["fused_mbconv"], "max_abs_err": err3,
+        "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3],
+        "bound_by": k3[4], "library_ms": None})
+    record = {"kernels": kernels}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

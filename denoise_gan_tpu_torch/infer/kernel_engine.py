@@ -2,9 +2,11 @@
 (denoise_gan_tpu/infer/kernel_engine.py:29-39, 71-292).
 
 Per frame: normalise to bf16 [-1, 1] -> edge-pad (m0 = 2) -> extract_grid
-into (core_rows + 4) x 124 tiles at stride (core_rows, 120) -> body (plain
-PyTorch, bf16) -> fused tail -> the (4H, 4W, 3) uint8 frame.  FSRGAN runs
-the CIN=32 tail (ops/tail.py), SRGAN the CIN=64 one (ops/tail_srgan.py).
+into (core_rows + 4) x 124 tiles at stride (core_rows, 120) -> body (bf16)
+-> fused tail -> the (4H, 4W, 3) uint8 frame.  FSRGAN runs the CIN=32 tail
+(ops/tail.py), SRGAN the CIN=64 one (ops/tail_srgan.py).  The FSRGAN body
+is plain PyTorch (``prepare_fsrgan_engine``) or has its inverted residuals
+as fused kernel launches (``prepare_mbconv_fsrgan_engine``, ops/mbconv.py).
 The geometry is the JAX engine's, so outputs compare tile for tile.
 
 Input options, as the JAX engines': ``u8_input`` takes the decoder's
@@ -23,6 +25,9 @@ import torch
 from denoise_gan_tpu_torch.infer.engine import extract_grid
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANBody, FSRGANGenerator
 from denoise_gan_tpu_torch.models.srgan import SRGANBody, SRGANGenerator
+from denoise_gan_tpu_torch.ops.mbconv import (
+    MBConvFSRGANBody, build_mbconv_fsrgan_body,
+)
 from denoise_gan_tpu_torch.ops.tail import (
     CORE, T, TailWeights, fused_tail_u8, prepare_tail,
 )
@@ -136,6 +141,24 @@ def prepare_fsrgan_engine(model: FSRGANGenerator, height: int, width: int,
                     q8_calib_frame, bgr_input)
 
 
+def prepare_mbconv_fsrgan_engine(model: FSRGANGenerator, height: int,
+                                 width: int, brc: int | None = None,
+                                 q8_calib_frame: torch.Tensor | None = None,
+                                 bgr_input: bool = False
+                                 ) -> tuple[MBConvFSRGANBody, TailWeights,
+                                            int]:
+    """As :func:`prepare_fsrgan_engine`, with the body's inverted residuals
+    as fused kernel launches (``build_mbconv_fsrgan_body``); the w8a8 tail
+    is calibrated on that body's output.  Wire the result with
+    :func:`build_kernel_engine`."""
+    if brc is None:
+        brc = 27 if q8_calib_frame is not None else 45
+    body = FSRGANBody(model.body.gf, model.body.n_residual_blocks,
+                      dtype=torch.bfloat16)
+    return _prepare(model, body, prepare_tail, height, width, brc,
+                    q8_calib_frame, bgr_input, wrap=build_mbconv_fsrgan_body)
+
+
 def build_srgan_kernel_engine(model: SRGANGenerator, height: int, width: int,
                               brc: int | None = None,
                               q8_calib_frame: torch.Tensor | None = None,
@@ -168,18 +191,20 @@ def prepare_srgan_engine(model: SRGANGenerator, height: int, width: int,
 
 
 def _prepare(model, body, prepare, height, width, brc, q8_calib_frame,
-             bgr_input):
+             bgr_input, wrap=lambda body: body):
     """Load the model's body weights into `body` (a bf16 body of the same
     shape) on the model's device, flip its stem's input channels for BGR
-    input (the JAX engine's _flip_stem_input_channels), and prepare the
-    tail, calibrated on the body's output for the calibration frames
-    (flipped to BGR to match the stem) when they are given."""
+    input (the JAX engine's _flip_stem_input_channels), pass it through
+    `wrap`, and prepare the tail, calibrated on the wrapped body's output
+    for the calibration frames (flipped to BGR to match the stem) when they
+    are given."""
     dev = model.tail.out_conv.weight.device
     body.load_state_dict(model.body.state_dict())
     body = body.to(dev).eval()
     if bgr_input:
         with torch.no_grad():
             body.Conv_0.weight.copy_(body.Conv_0.weight.flip(1))
+    body = wrap(body)
     sample = None
     if q8_calib_frame is not None:
         frames = q8_calib_frame

@@ -11,10 +11,12 @@ from denoise_gan_tpu_torch.utils.device import resolve_device
 
 
 def build_generator(family: str, dtype: torch.dtype | None = None,
-                    device: torch.device | str = "cpu",
+                    device: torch.device | str = "cuda",
                     generator: torch.Generator | None = None):
-    """The family's generator in eval mode on `device`, initialised from
-    `generator` (a CPU torch.Generator; None uses torch's global one).
+    """The family's generator in eval mode on `device` (the card unless the
+    caller asks for the CPU; without a GPU a CUDA request raises
+    RuntimeError), initialised from `generator` (a CPU torch.Generator; None
+    uses torch's global one).
     `dtype` is the compute dtype (None: f32); parameters are f32.  SRGAN is
     the 4x, 16-block, 64-filter generator the JAX registry builds."""
     dev = resolve_device(device)

@@ -27,7 +27,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #  n_tiles, nx, core_rows, height, width, bgr, stream)
 _TAIL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_float] * 2
               + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-ENTRY_POINTS = {"dgt_tail_u8": _TAIL_ARGS, "dgt_tail64_u8": _TAIL_ARGS}
+# the inverted residual takes (x, out, we, be, wd, bd, wp, bp, n, h, w,
+# e_dim, residual, stream)
+_MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+ENTRY_POINTS = {"dgt_tail_u8": _TAIL_ARGS, "dgt_tail64_u8": _TAIL_ARGS,
+                "dgt_mbconv": _MBCONV_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 

@@ -2,7 +2,10 @@
 for SRGAN) against their plain PyTorch twins on the card, at small and ragged
 geometries that chip_smoke.py's 1080p shapes do not reach: core_rows not a
 multiple of the kernels' 5-row band, and frames that end inside the last tile
-row and column.
+row and column.  Likewise the fused inverted residual (csrc/mbconv.cu, K3)
+against its plain version, bit for bit, at heights that its 8-row band and
+widths that its 16-column chunk do not divide, with be > 0 so that the
+zero ring of the expanded tensor is exercised.
 
 These tests need a CUDA GPU and nvcc; without them they skip.  tests/
 conftest.py imports jax and hides CUDA devices, so on a machine with a card
@@ -76,3 +79,28 @@ def test_w8a8_kernel_is_bit_identical(port, geom, family):
              family=family)
     _check(r, height, width)
     assert r["max_diff"] == 0, r
+
+
+# (n, h, w): band and chunk dividing nothing; the 1080p tile; one partial block
+MBCONV_SHAPES = [(2, 13, 37), (1, 139, 124), (3, 5, 7)]
+
+
+@pytest.mark.parametrize("expand", [True, False], ids=["expand", "no_expand"])
+@pytest.mark.parametrize("shape", MBCONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_kernel_matches_reference(port, shape, expand):
+    r = port("cuda_mbconv_vs_reference", *shape, expand)
+    assert r["shape"] == (*shape, 32)
+    assert r["dtype"] == "torch.bfloat16" and r["device"] == "cuda"
+    assert r["launches"] == 1
+    assert r["max_diff"] == 0, r
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout"])
+def test_mbconv_wrapper_refuses_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("cuda_mbconv_bad_input", bad)
+
+
+def test_build_generator_defaults_to_card(port):
+    assert port("default_generator_device") == "cuda"

@@ -143,3 +143,10 @@ def test_build_generator_seeded(port):
         np.testing.assert_array_equal(a[name], b[name])
     with pytest.raises(NotImplementedError, match="not ported"):
         port("build_family", "pix2pix")
+
+
+def test_build_generator_defaults_to_card(port):
+    """With no device, build_generator runs on the card; without one it
+    raises rather than falling back to the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port("build_default_device_without_gpu")

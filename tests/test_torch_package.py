@@ -57,7 +57,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.infer.kernel_engine import build_fsrgan_kernel_engine
-model = build_generator("fsrgan", generator=torch.Generator().manual_seed(0))
+model = build_generator("fsrgan", device="cpu",
+                        generator=torch.Generator().manual_seed(0))
 out = build_fsrgan_kernel_engine(model, 20, 30, brc=24)(torch.rand(20, 30, 3))
 assert out.shape == (80, 120, 3) and out.dtype == torch.uint8
 assert not any(m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None

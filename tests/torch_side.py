@@ -25,6 +25,7 @@ from denoise_gan_tpu_torch.models import srgan as tsrgan
 from denoise_gan_tpu_torch.models.layers import BatchNorm
 from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import image as timage
+from denoise_gan_tpu_torch.ops import mbconv as tmbconv
 from denoise_gan_tpu_torch.ops import tail as ttail
 from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
 from denoise_gan_tpu_torch.utils.device import require_cuda, resolve_device
@@ -133,7 +134,7 @@ def batchnorm_train_forward():
 def seeded_generators(seed):
     """Two generators built from one seed: (training flag of the first,
     both state dicts as numpy)."""
-    a, b = (build_generator("fsrgan",
+    a, b = (build_generator("fsrgan", device="cpu",
                             generator=torch.Generator().manual_seed(seed))
             for _ in range(2))
     return (a.training, {k: _np(v) for k, v in a.state_dict().items()},
@@ -141,7 +142,14 @@ def seeded_generators(seed):
 
 
 def build_family(family):
-    build_generator(family)
+    build_generator(family, device="cpu")
+
+
+def build_default_device_without_gpu():
+    """build_generator("fsrgan") with no device, CUDA reading as absent:
+    raises."""
+    with _no_cuda():
+        build_generator("fsrgan")
 
 
 def srgan_forward(part, params, stats, x, dt, blocks=16):
@@ -168,7 +176,7 @@ def load_srgan(params, stats, scale=4, blocks=16):
 def seeded_srgan(seed):
     """Two SRGAN generators built from one seed: (training flag of the
     first, both state dicts as numpy)."""
-    a, b = (build_generator("srgan",
+    a, b = (build_generator("srgan", device="cpu",
                             generator=torch.Generator().manual_seed(seed))
             for _ in range(2))
     return (a.training, {k: _np(v) for k, v in a.state_dict().items()},
@@ -311,6 +319,74 @@ def wrapper_bad_input(params, h, ny, nx, height, width, bad,
 
 
 # ---------------------------------------------------------------------------
+# ops/mbconv.py
+
+def _mbconv_weights(w, dt, residual=True, device="cpu"):
+    """MBConvWeights from a dict of f32 arrays (no "we"/"be": no expand)."""
+    def t(k):
+        return None if w.get(k) is None else \
+            torch.from_numpy(w[k]).to(device, DTYPES[dt] or torch.float32)
+
+    return tmbconv.MBConvWeights(we=t("we"), be=t("be"), wd=t("wd"),
+                                 bd=t("bd"), wp=t("wp"), bp=t("bp"),
+                                 residual=residual)
+
+
+def mbconv_reference(x, w, dt):
+    """fused_mbconv_reference on x (f32 array, cast to `dt`) as f32."""
+    xt = torch.from_numpy(x).to(DTYPES[dt] or torch.float32)
+    return _np(tmbconv.fused_mbconv_reference(xt, _mbconv_weights(w, dt)))
+
+
+def mbconv_prepare(params, stats, idx):
+    """prepare_mbconv (f32) of the body's InvertedResidual_<idx>: its
+    weights as f32 arrays (None for an absent expand) and residual flag."""
+    body = from_jax_params(tfsrgan.FSRGANBody().eval(), params, stats)
+    w = tmbconv.prepare_mbconv(getattr(body, f"InvertedResidual_{idx}"),
+                               torch.float32)
+    return ({k: None if getattr(w, k) is None else _np(getattr(w, k))
+             for k in ("we", "be", "wd", "bd", "wp", "bp")}, w.residual)
+
+
+def mbconv_body_forward(params, stats, x, dt):
+    """build_mbconv_fsrgan_body of a `dt` FSRGANBody on x (CPU: the plain
+    block), and the increments of the block's launch counts."""
+    body = from_jax_params(tfsrgan.FSRGANBody(dtype=DTYPES[dt]).eval(),
+                           params, stats)
+    fused = tmbconv.build_mbconv_fsrgan_body(body)
+    before = dict(tmbconv.launch_counts)
+    with torch.no_grad():
+        out = fused(torch.from_numpy(x))
+    return _np(out), str(out.dtype), {
+        k: tmbconv.launch_counts[k] - before[k] for k in before}
+
+
+def mbconv_wrapper_on_cpu(x, w, dt):
+    """(wrapper's output, plain version's output, launch-count
+    increments)."""
+    xt = torch.from_numpy(x).to(DTYPES[dt] or torch.float32)
+    mw = _mbconv_weights(w, dt)
+    before = dict(tmbconv.launch_counts)
+    got = tmbconv.fused_mbconv(xt, mw)
+    want = tmbconv.fused_mbconv_reference(xt, mw)
+    return _np(got), _np(want), {
+        k: tmbconv.launch_counts[k] - before[k] for k in before}
+
+
+def mbconv_wrapper_bad_input(x, w, bad):
+    """Call the wrapper with x spoilt as `bad` names ("channels": one
+    channel short; "meta": off the CPU with CUDA reading as absent);
+    raises."""
+    if bad == "meta":
+        with _no_cuda():
+            tmbconv.fused_mbconv(
+                torch.empty(x.shape, dtype=torch.bfloat16, device="meta"),
+                _mbconv_weights(w, "bf16", device="meta"))
+    tmbconv.fused_mbconv(torch.from_numpy(x[..., 1:]).bfloat16(),
+                         _mbconv_weights(w, "bf16"))
+
+
+# ---------------------------------------------------------------------------
 # infer/kernel_engine.py
 
 _BUILDERS = {"fsrgan": (tfsrgan.FSRGANGenerator,
@@ -343,6 +419,22 @@ def engine_frames(params, stats, height, width, brc, frames, calib=None,
     before = _launch_counts()
     outs = [run(torch.from_numpy(f)).numpy() for f in frames]
     after = _launch_counts()
+    return outs, {k: after[k] - before[k] for k in before}
+
+
+def mbconv_engine_frames(params, stats, height, width, brc, frames,
+                         calib=None):
+    """The K3-body FSRGAN engine (prepare_mbconv_fsrgan_engine wired by
+    build_kernel_engine) on each frame, w8a8 calibrated on frames[calib]
+    when it is given; and the increments of the launch counts."""
+    q8_frame = None if calib is None else torch.from_numpy(frames[calib])
+    body, tw, brc = tke.prepare_mbconv_fsrgan_engine(
+        _generator(params, stats), height, width, brc=brc,
+        q8_calib_frame=q8_frame)
+    run = tke.build_kernel_engine(body, tw, height, width, brc=brc)
+    before = {**_launch_counts(), **tmbconv.launch_counts}
+    outs = [run(torch.from_numpy(f)).numpy() for f in frames]
+    after = {**_launch_counts(), **tmbconv.launch_counts}
     return outs, {k: after[k] - before[k] for k in before}
 
 
@@ -426,3 +518,52 @@ def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr,
                 launches=launches, max_diff=int(d.max()),
                 frac_diff=float((d > 0).float().mean()),
                 std_min=float(got.float().std(dim=(0, 1)).min()))
+
+
+def _seeded_block(gen, expand, device):
+    """MBConvWeights in bf16 on `device` from a torch.Generator, with
+    be in [0.2, 0.5] so that relu(be) > 0 on the ring."""
+    e = 192 if expand else 32
+    w = {"wd": torch.randn((3, 3, e), generator=gen) / 3,
+         "bd": torch.randn(e, generator=gen) * 0.1,
+         "wp": torch.randn((e, 32), generator=gen) / e ** 0.5,
+         "bp": torch.randn(32, generator=gen) * 0.1}
+    if expand:
+        w["we"] = torch.randn((32, e), generator=gen) / 32 ** 0.5
+        w["be"] = torch.rand(e, generator=gen) * 0.3 + 0.2
+    return _mbconv_weights({k: v.numpy() for k, v in w.items()}, "bf16",
+                           device=device)
+
+
+def cuda_mbconv_vs_reference(n, h, w, expand):
+    """The K3 kernel and its plain version on one seeded bf16 x on the card:
+    a dict of the output's shape, dtype and device, the kernel's launch-count
+    increment, the max |difference| and the share of outputs that differ."""
+    gen = torch.Generator().manual_seed(n * 10000 + h * 100 + w)
+    x = (torch.randn((n, h, w, 32), generator=gen) * 0.5).to(
+        "cuda", torch.bfloat16)
+    mw = _seeded_block(gen, expand, "cuda")
+    before = tmbconv.launch_counts["fused_mbconv"]
+    got = tmbconv.fused_mbconv(x, mw)
+    torch.cuda.synchronize()
+    launches = tmbconv.launch_counts["fused_mbconv"] - before
+    want = tmbconv.fused_mbconv_reference(x, mw)
+    d = (got.float() - want.float()).abs()
+    return dict(shape=tuple(got.shape), dtype=str(got.dtype),
+                device=got.device.type, launches=launches,
+                max_diff=float(d.max()), frac_diff=float((d > 0).float().mean()))
+
+
+def cuda_mbconv_bad_input(bad):
+    """The K3 wrapper on a CUDA x that it does not take: f32, or a
+    non-contiguous bf16 view; raises."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 8, 16, 32), generator=gen).to("cuda")
+    if bad == "layout":
+        x = x.bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+    tmbconv.fused_mbconv(x, _seeded_block(gen, True, "cuda"))
+
+
+def default_generator_device():
+    """The device type of build_generator("fsrgan") with no device."""
+    return build_generator("fsrgan").body.Conv_0.weight.device.type
