@@ -1,40 +1,44 @@
 // Fused FSRGAN tail for Hopper (sm_90a): up1 -> up2 -> output conv -> tanh
-// -> crop-stitch -> uint8, one launch per frame.
+// -> crop-stitch -> uint8 (or bf16 canvas), one launch per frame.
 //
 // Replaces the TPU kernel denoise_gan_tpu/ops/pallas/tail.py::_tail_kernel
-// (u8 epilogue; bf16 and w8a8 modes).  Its plain PyTorch twin is
-// ops/tail.py::fused_tail_u8_reference; the wrapper is ops/tail.py::
-// fused_tail_u8.
+// in all its modes (bf16, w8a8, qh8) and both epilogues (u8, canvas).  Its
+// plain PyTorch twins are ops/tail.py::fused_tail_u8_reference and
+// fused_tail_canvas_reference; the wrappers are ops/tail.py::fused_tail_u8
+// and fused_tail_canvas.
 //
-// Input: the body output h, NHWC tiles (n_tiles, core_rows+4, 124, 32)
-// bf16, contiguous.  Output: the (4*height, 4*width, 3) uint8 frame.  The
-// core of tile (ty, tx) is coarse rows [2, 2+cr) x cols [2, 122), i.e. fine
-// [8, 8+4cr) x [8, 488), and lands at fine (ty*4cr, tx*480) of the frame;
-// the ragged bottom and right edges are masked.  A core pixel depends on
-// its own tile only; reads outside the tile return zero (per-tile SAME
-// padding), which no core pixel reaches.
+// Input: the body output h, NHWC tiles (n_tiles, core_rows+4, 124, 32),
+// contiguous: bf16, or int8 in qh8 mode (ops/tail.py::quantize_h).  Output:
+// the (4*height, 4*width, 3) frame, uint8 (u8 epilogue) or the bf16 tanh
+// (canvas epilogue).  The core of tile (ty, tx) is coarse rows [2, 2+cr) x
+// cols [2, 122), i.e. fine [8, 8+4cr) x [8, 488), and lands at fine (ty*4cr,
+// tx*480) of the frame; the ragged bottom and right edges are masked.  A
+// core pixel depends on its own tile only; reads outside the tile return
+// zero (per-tile SAME padding), which no core pixel reaches.
 //
 // What bounds it on the H100: arithmetic.  A 1080p frame (128 tiles of
 // 139x124) needs ~0.44 T multiply-adds (up2 is 3/4 of them) and this
 // blocking recomputes conv halos for ~1.4x that, while it moves only the
-// 141 MB of bf16 h in and the 100 MB of u8 out (~0.07 ms at 3.35 TB/s).
-// The design keeps every intermediate in shared memory, so device memory
-// sees only h and the frame, and spends its time in the three convolutions.
-// This first version runs them on the CUDA cores: f32 FMAs on bf16
-// operands, __dp4a for the int8 products of w8a8.  Each lane owns 4 output
-// channels and each warp a set of positions, so one broadcast 16-byte
-// shared load feeds 32 multiply-adds.  Tensor-core products (mma.sync,
-// wgmma) are the next step.
+// 141 MB of bf16 h (71 MB int8) in and the 100 MB of u8 (199 MB of bf16
+// canvas) out (~0.07 ms at 3.35 TB/s).  The design keeps every intermediate
+// in shared memory, so device memory sees only h and the frame, and spends
+// its time in the three convolutions.  This version runs them on the CUDA
+// cores: f32 FMAs on bf16 operands, __dp4a for the int8 products.  Each
+// lane owns 4 output channels and each warp a set of positions, so one
+// broadcast 16-byte shared load feeds 32 multiply-adds.  Tensor-core
+// products (mma.sync, wgmma) are the next step.
 //
 // Block = (column chunk of BC core cols, band of BR core rows, tile):
 //   stage 0: h patch (BR+4) x (BC+4) x 32 -> smem (zero outside the tile)
-//   stage 1: up1 at (BR+2) x (BC+2) coarse positions, 128 channels, + b1,
-//            PReLU; stored bf16 (bf16 mode) or int8 = q(u1 / su1) (w8a8)
+//   stage 1: up1 at (BR+2) x (BC+2) coarse positions, 128 channels, + b1
+//            (qh8: int32 * s1 + b1), PReLU; stored bf16 (bf16 mode) or
+//            int8 = q(u1 / su1) (w8a8, qh8)
 //   stage 2: up2 at (2BR+2) x (2BC+2) positions of the 2x grid, 128
 //            channels, + b2 (or int32 * s2 + b2), PReLU; stored on the 4x
 //            grid as R: bf16, or int8 = q(R / sr) and q(bf16(R) / sr)
 //   stage 3: output conv at 4BR x 4BC fine pixels, + b3 (or int32 * s3 +
-//            b3), tanh, bf16 rounding, u8 = trunc(clip((v+1)*127.5+0.5)).
+//            b3), tanh, bf16 rounding; u8 = trunc(clip((v+1)*127.5+0.5)),
+//            or the bf16 value itself (canvas).
 // q(x) rounds half to even and clips to +-127.  u1 and R are quantised
 // from f32, except in the two output-conv taps that reach the neighbouring
 // 4-column group (tile-local output column 4j, tap dx = 0, and 4j+3, tap
@@ -73,15 +77,17 @@ constexpr int NPASS2 = (NP2 + NWARP * P2 - 1) / (NWARP * P2);
 constexpr int NP3 = OR * OC;                     // 640
 constexpr int P3 = (NP3 + NT - 1) / NT;
 
-template <bool Q8>
+template <int MODE>
 struct Layout {
+  static constexpr bool Q8 = MODE != BF16;
   using act_t = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  // output-conv weights: w8a8 int32 words [c][72]; bf16 f32 [tap][c][ch]
+  static constexpr int h_px = MODE == QH8 ? CIN : 2 * CIN;  // bytes per pixel
+  // output-conv weights: int8 modes int32 words [c][72]; bf16 f32 [tap][c][ch]
   static constexpr int w3_bytes = Q8 ? 3 * 72 * 4 : 9 * 3 * CIN * 4;
-  static constexpr int h_bytes = HR * HC * CIN * 2;
+  static constexpr int h_bytes = HR * HC * h_px;
   static constexpr int u1_bytes = NP1 * C1 * (int)sizeof(act_t);
   static constexpr int r_bytes = FR * FC * CIN * (int)sizeof(act_t);
-  // w8a8: R quantised from its bf16 copy, for the edge taps of stage 3
+  // int8 modes: R quantised from its bf16 copy, for the edge taps of stage 3
   static constexpr int rb_bytes = Q8 ? r_bytes : 0;
   static constexpr int h_off = w3_bytes;
   static constexpr int u1_off = h_off + h_bytes;
@@ -93,30 +99,32 @@ struct Layout {
                 "16-byte shared loads need aligned buffers");
 };
 
-template <bool Q8>
+template <int MODE, bool CANVAS>
 __global__ void __launch_bounds__(NT, 2)
-tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
-               const __nv_bfloat16* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ a1,
-               const void* __restrict__ w2v, const float* __restrict__ b2,
-               const float* __restrict__ a2, const void* __restrict__ w3v,
-               const float* __restrict__ b3, const float* __restrict__ s2,
-               const float* __restrict__ s3, float inv_su1, float inv_sr,
-               int nx, int core_rows, int height, int width, int bgr) {
-  using L = Layout<Q8>;
+tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
+            const void* __restrict__ w1v, const float* __restrict__ b1,
+            const float* __restrict__ a1, const void* __restrict__ w2v,
+            const float* __restrict__ b2, const float* __restrict__ a2,
+            const void* __restrict__ w3v, const float* __restrict__ b3,
+            const float* __restrict__ s1, const float* __restrict__ s2,
+            const float* __restrict__ s3, float inv_su1, float inv_sr,
+            int nx, int core_rows, int height, int width, int bgr) {
+  using L = Layout<MODE>;
   using act_t = typename L::act_t;
+  using out_t =
+      typename std::conditional<CANVAS, __nv_bfloat16, uint8_t>::type;
+  constexpr bool Q8 = L::Q8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L::h_off);
   act_t* u1s = reinterpret_cast<act_t*>(smem + L::u1_off);
   act_t* rs = reinterpret_cast<act_t*>(smem + L::r_off);
   act_t* rbs = reinterpret_cast<act_t*>(smem + L::rb_off);
+  out_t* out = static_cast<out_t*>(outv);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * BC;   // first core col (core coords)
   const int r0 = blockIdx.y * BR;   // first core row
   const int n = blockIdx.z;
   const int tr = core_rows + 4;
-  const __nv_bfloat16* hn = h + (size_t)n * tr * T * CIN;
 
   // ---- stage 0: output-conv weights and the h patch (tile rows r0.., cols
   // c0..) into shared memory
@@ -132,70 +140,103 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
       w3s[i] = __bfloat162float(w3[(tap * CIN + ch) * 3 + c]);
     }
   }
-  for (int i = tid; i < HR * HC * 4; i += NT) {
-    const int px = i >> 2, part = i & 3;
-    const int y = r0 + px / HC, x = c0 + px % HC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (y < tr && x < T)
-      v = *reinterpret_cast<const uint4*>(hn + ((size_t)y * T + x) * CIN +
-                                          part * 8);
-    reinterpret_cast<uint4*>(hs)[i] = v;
-  }
+  load_patch<L::h_px, HR, HC>(h + (size_t)n * tr * T * L::h_px,
+                              reinterpret_cast<uint4*>(smem + L::h_off), r0,
+                              c0, tr, tid, NT);
   __syncthreads();
 
   // ---- stage 1: up1 at U1 position (i, j) = tile (r0+1+i, c0+1+j), reading
   // h patch (i+dy, j+dx).  Lane: channels o..o+3; warp: positions warp+8m.
   {
     const int o = lane * 4;
-    float acc[P1][4];
+    if constexpr (MODE == QH8) {
+      const int8_t* hs = reinterpret_cast<const int8_t*>(smem + L::h_off);
+      const int* w1 = static_cast<const int*>(w1v);          // (72, 128)
+      int acc[P1][4];
 #pragma unroll
-    for (int m = 0; m < P1; ++m)
+      for (int m = 0; m < P1; ++m)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[m][q] = 0;
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
 #pragma unroll 1
-      for (int c8 = 0; c8 < CIN; c8 += 8) {
-        float w[8][4];
+        for (int c16 = 0; c16 < CIN; c16 += 16) {
+          int w[4][4];
+          load_w16(w, w1 + (size_t)(tap * 8 + c16 / 4) * C1 + o, C1);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const uint2 wv = *reinterpret_cast<const uint2*>(
-              w1 + (size_t)(tap * CIN + c8 + k) * C1 + o);
-          w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
-          w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
-        }
-#pragma unroll
-        for (int m = 0; m < P1; ++m) {
-          const int p = warp + NWARP * m;
-          if (p < NP1) {
-            const int i = p / UC, j = p % UC;
-            float x[8];
-            unpack8(*reinterpret_cast<const uint4*>(
-                        hs + ((i + dy) * HC + (j + dx)) * CIN + c8), x);
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
+          for (int m = 0; m < P1; ++m) {
+            const int p = warp + NWARP * m;
+            if (p < NP1) {
+              const int i = p / UC, j = p % UC;
+              dp4a_16(acc[m],
+                      *reinterpret_cast<const uint4*>(
+                          hs + ((i + dy) * HC + (j + dx)) * CIN + c16),
+                      w);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int m = 0; m < P1; ++m) {
-      const int p = warp + NWARP * m;
-      if (p < NP1) {
-        float v[4];
+      for (int m = 0; m < P1; ++m) {
+        const int p = warp + NWARP * m;
+        if (p < NP1) {
+          float v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & 31]);
-        if constexpr (Q8) {
-          *reinterpret_cast<uint32_t*>(u1s + p * C1 + o) =
-              pack_s8x4(v, inv_su1);
-        } else {
-          *reinterpret_cast<uint2*>(u1s + p * C1 + o) =
-              make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+          for (int q = 0; q < 4; ++q)
+            v[q] = prelu(dequant(acc[m][q], s1[o + q], b1[o + q]),
+                         a1[(o + q) & 31]);
+          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
+        }
+      }
+    } else {
+      const __nv_bfloat16* hs =
+          reinterpret_cast<const __nv_bfloat16*>(smem + L::h_off);
+      const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(w1v);
+      float acc[P1][4];
+#pragma unroll
+      for (int m = 0; m < P1; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll 1
+        for (int c8 = 0; c8 < CIN; c8 += 8) {
+          float w[8][4];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const uint2 wv = *reinterpret_cast<const uint2*>(
+                w1 + (size_t)(tap * CIN + c8 + k) * C1 + o);
+            w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
+            w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
+          }
+#pragma unroll
+          for (int m = 0; m < P1; ++m) {
+            const int p = warp + NWARP * m;
+            if (p < NP1) {
+              const int i = p / UC, j = p % UC;
+              float x[8];
+              unpack8(*reinterpret_cast<const uint4*>(
+                          hs + ((i + dy) * HC + (j + dx)) * CIN + c8), x);
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                  acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < P1; ++m) {
+        const int p = warp + NWARP * m;
+        if (p < NP1) {
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & 31]);
+          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
         }
       }
     }
@@ -225,29 +266,17 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
 #pragma unroll 1
           for (int c16 = 0; c16 < CIN; c16 += 16) {
             int w[4][4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int4 wv = *reinterpret_cast<const int4*>(
-                  w2 + (size_t)(tap * 8 + c16 / 4 + k) * C1 + q0);
-              w[k][0] = wv.x; w[k][1] = wv.y; w[k][2] = wv.z; w[k][3] = wv.w;
-            }
+            load_w16(w, w2 + (size_t)(tap * 8 + c16 / 4) * C1 + q0, C1);
 #pragma unroll
             for (int m = 0; m < P2; ++m) {
               const int p = warp + NWARP * (pass * P2 + m);
               if (p < NP2) {
                 const int D = p / YC + du, E = p % YC + dv;
-                const uint4 a = *reinterpret_cast<const uint4*>(
-                    u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
-                    ((D & 1) * 2 + (E & 1)) * CIN + c16);
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                  int s = acc[m][q];
-                  s = __dp4a((int)a.x, w[0][q], s);
-                  s = __dp4a((int)a.y, w[1][q], s);
-                  s = __dp4a((int)a.z, w[2][q], s);
-                  s = __dp4a((int)a.w, w[3][q], s);
-                  acc[m][q] = s;
-                }
+                dp4a_16(acc[m],
+                        *reinterpret_cast<const uint4*>(
+                            u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
+                            ((D & 1) * 2 + (E & 1)) * CIN + c16),
+                        w);
               }
             }
           }
@@ -296,15 +325,12 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
             v[q] = prelu(z, a2[t0 + q]);
           }
           const int at = ((2 * Y + pa) * FC + 2 * X + pb) * CIN + t0;
+          put4<Q8>(rs + at, v, inv_sr);
           if constexpr (Q8) {
-            *reinterpret_cast<uint32_t*>(rs + at) = pack_s8x4(v, inv_sr);
             float vb[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) vb[q] = round_bf16(v[q]);
-            *reinterpret_cast<uint32_t*>(rbs + at) = pack_s8x4(vb, inv_sr);
-          } else {
-            *reinterpret_cast<uint2*>(rs + at) =
-                make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+            put4<Q8>(rbs + at, vb, inv_sr);
           }
         }
       }
@@ -383,57 +409,56 @@ tail_u8_kernel(const __nv_bfloat16* __restrict__ h, uint8_t* __restrict__ out,
 #pragma unroll
       for (int c = 0; c < 3; ++c) v[c] = acc[c] + b3[c];
     }
-    uint8_t* dst = out + ((size_t)gy * 4 * width + gx) * 3;
+    out_t* dst = out + ((size_t)gy * 4 * width + gx) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) dst[bgr ? 2 - c : c] = to_u8(v[c]);
+    for (int c = 0; c < 3; ++c) store_px(dst + (bgr ? 2 - c : c), v[c]);
   }
 }
 
-template <bool Q8>
-cudaError_t launch(const void* h, void* out, const void* w1, const void* b1,
-                   const void* a1, const void* w2, const void* b2,
-                   const void* a2, const void* w3, const void* b3,
-                   const void* s2, const void* s3, float inv_su1,
-                   float inv_sr, int n_tiles, int nx, int core_rows,
-                   int height, int width, int bgr, cudaStream_t stream) {
-  const int smem = Layout<Q8>::total;
+template <int MODE, bool CANVAS>
+cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
+  const int smem = Layout<MODE>::total;
   cudaError_t e = cudaFuncSetAttribute(
-      tail_u8_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tail_kernel<MODE, CANVAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((CORE + BC - 1) / BC, (core_rows + BR - 1) / BR, n_tiles);
-  tail_u8_kernel<Q8><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<uint8_t*>(out),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(a1), w2, static_cast<const float*>(b2),
-      static_cast<const float*>(a2), w3, static_cast<const float*>(b3),
-      static_cast<const float*>(s2), static_cast<const float*>(s3), inv_su1,
-      inv_sr, nx, core_rows, height, width, bgr);
+  const dim3 grid((CORE + BC - 1) / BC, (a.core_rows + BR - 1) / BR, n_tiles);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  tail_kernel<MODE, CANVAS><<<grid, NT, smem, stream>>>(
+      static_cast<const unsigned char*>(a.h), a.out, a.w1, f(a.b1), f(a.a1),
+      a.w2, f(a.b2), f(a.a2), a.w3, f(a.b3), f(a.s1), f(a.s2), f(a.s3),
+      a.inv_su1, a.inv_sr, a.nx, a.core_rows, a.height, a.width, a.bgr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the fused tail on `stream`; returns the cudaError_t of the launch.
-// bf16 mode (q8 = 0): w2 (288, 128) and w3 (288, 3) bf16; s2/s3 unused.
-// w8a8 mode (q8 = 1): w2 (72, 128) and w3 (3, 72) int32 words of 4 int8
-// along k, s2 (128,) and s3 (3,) f32 dequant scales.
-extern "C" int dgt_tail_u8(const void* h, void* out, const void* w1,
-                           const void* b1, const void* a1, const void* w2,
-                           const void* b2, const void* a2, const void* w3,
-                           const void* b3, const void* s2, const void* s3,
-                           float inv_su1, float inv_sr, int q8, int n_tiles,
-                           int nx, int core_rows, int height, int width,
-                           int bgr, void* stream) {
-  if (n_tiles < 1 || nx < 1 || n_tiles % nx || core_rows < 1 ||
-      n_tiles > 65535 || (q8 && (!s2 || !s3)))
-    return (int)cudaErrorInvalidValue;
+// mode (tail_common.cuh::Mode): 0 bf16: h bf16, w1 (288, 128), w2 (288,
+// 128) and w3 (288, 3) bf16, s1/s2/s3 unused.  1 w8a8: w2 (72, 128) and w3
+// (3, 72) int32 words of 4 int8 along k, s2 (128,) and s3 (3,) f32 dequant
+// scales.  2 qh8: as w8a8, with h int8 and w1 (72, 128) int32 words, s1
+// (128,).  canvas = 1 writes the bf16 tanh instead of u8 (RGB only).
+extern "C" int dgt_tail(const void* h, void* out, const void* w1,
+                        const void* b1, const void* a1, const void* w2,
+                        const void* b2, const void* a2, const void* w3,
+                        const void* b3, const void* s1, const void* s2,
+                        const void* s3, float inv_su1, float inv_sr,
+                        int mode, int canvas, int n_tiles, int nx,
+                        int core_rows, int height, int width, int bgr,
+                        void* stream) {
+  const Args a{h, out, w1, b1, a1, w2, b2, a2, w3, b3, s1, s2, s3,
+               inv_su1, inv_sr, nx, core_rows, height, width, bgr};
+  cudaError_t e = check_args(a, mode, canvas, n_tiles);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      q8 ? launch<true>(h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3,
-                        inv_su1, inv_sr, n_tiles, nx, core_rows, height,
-                        width, bgr, st)
-         : launch<false>(h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3,
-                         inv_su1, inv_sr, n_tiles, nx, core_rows, height,
-                         width, bgr, st);
+  switch (mode * 2 + (canvas ? 1 : 0)) {
+    case 0: e = launch<BF16, false>(a, n_tiles, st); break;
+    case 1: e = launch<BF16, true>(a, n_tiles, st); break;
+    case 2: e = launch<W8A8, false>(a, n_tiles, st); break;
+    case 3: e = launch<W8A8, true>(a, n_tiles, st); break;
+    case 4: e = launch<QH8, false>(a, n_tiles, st); break;
+    default: e = launch<QH8, true>(a, n_tiles, st); break;
+  }
   return (int)e;
 }

@@ -1,32 +1,35 @@
 // Fused SRGAN tail for Hopper (sm_90a): up1 -> up2 -> 1x1 output conv ->
-// tanh -> crop-stitch -> uint8, one launch per frame.
+// tanh -> crop-stitch -> uint8 (or bf16 canvas), one launch per frame.
 //
 // Replaces the TPU kernel denoise_gan_tpu/ops/pallas/tail_srgan.py::
-// _tail64_kernel (u8 epilogue; bf16 and w8a8 modes).  Its plain PyTorch
-// twin is ops/tail_srgan.py::fused_tail64_u8_reference; the wrapper is
-// ops/tail_srgan.py::fused_tail64_u8.
+// _tail64_kernel in all its modes (bf16, w8a8, qh8) and both epilogues (u8,
+// canvas).  Its plain PyTorch twins are ops/tail_srgan.py::
+// fused_tail64_u8_reference and fused_tail64_canvas_reference; the wrappers
+// are ops/tail_srgan.py::fused_tail64_u8 and fused_tail64_canvas.
 //
-// Input: the body output h, NHWC tiles (n_tiles, core_rows+4, 124, 64)
-// bf16, contiguous.  Output: the (4*height, 4*width, 3) uint8 frame.  The
-// geometry is tail.cu's: the core of tile (ty, tx) is coarse rows
-// [2, 2+cr) x cols [2, 122), i.e. fine [8, 8+4cr) x [8, 488), and lands at
-// fine (ty*4cr, tx*480) of the frame; the ragged bottom and right edges are
-// masked; reads outside the tile return zero, which no core pixel reaches.
+// Input: the body output h, NHWC tiles (n_tiles, core_rows+4, 124, 64),
+// contiguous: bf16, or int8 in qh8 mode.  Output: the (4*height, 4*width,
+// 3) frame, uint8 or (canvas) the bf16 tanh.  The geometry is tail.cu's:
+// the core of tile (ty, tx) is coarse rows [2, 2+cr) x cols [2, 122), i.e.
+// fine [8, 8+4cr) x [8, 488), and lands at fine (ty*4cr, tx*480) of the
+// frame; the ragged bottom and right edges are masked; reads outside the
+// tile return zero, which no core pixel reaches.
 //
 // What bounds it on the H100: arithmetic.  A 1080p frame (128 tiles of
 // 139x124) needs ~1.54 T multiply-adds (up1 0.31 T, up2 1.22 T, the 1x1
 // conv 6 G), ~1.8 T with this blocking's recomputed up1 halo, while it
-// moves only the 282 MB of bf16 h in and the 100 MB of u8 out (~0.11 ms at
-// 3.35 TB/s).  So, as in tail.cu, every intermediate stays on chip and the
-// time goes to the two 3x3 convolutions, here on the CUDA cores: f32 FMAs
-// on bf16 operands, __dp4a for the int8 products of w8a8.  Each lane owns
-// 4 output channels and each warp a set of positions, so one broadcast
-// 16-byte shared load feeds 32 multiply-adds.  What differs from tail.cu:
+// moves only the 282 MB of bf16 h (141 MB int8) in and the 100 MB of u8
+// (199 MB of bf16 canvas) out (~0.11 ms at 3.35 TB/s).  So, as in tail.cu,
+// every intermediate stays on chip and the time goes to the two 3x3
+// convolutions, here on the CUDA cores: f32 FMAs on bf16 operands, __dp4a
+// for the int8 products.  Each lane owns 4 output channels and each warp a
+// set of positions, so one broadcast 16-byte shared load feeds 32
+// multiply-adds.  What differs from tail.cu:
 // * The output conv is 1x1, so R needs no halo and no shared memory.  In
 //   up2's epilogue a lane holds R for 4 channels of one fine pixel (16
 //   lanes hold its 64), takes its part of the 64->3 dot and the 16 lanes
-//   add their parts with warp shuffles (integers in w8a8: exact in any
-//   order).
+//   add their parts with warp shuffles (integers in the int8 modes: exact
+//   in any order).
 // * 256 conv outputs: the block runs up1 and up2 once per 128-channel
 //   half, a lane owning 4 channels of the half.
 // * W1 and W2 (576 x 256: 295 KB each in bf16, 147 KB in int8) exceed
@@ -37,12 +40,13 @@
 // Block = (column chunk of BC core cols, band of BR core rows, tile):
 //   stage 0: h patch (BR+4) x (BC+4) x 64 -> smem (zero outside the tile),
 //            output-conv weights -> smem
-//   stage 1: up1 at (BR+2) x (BC+2) coarse positions, 256 channels, + b1,
-//            PReLU; stored bf16 (bf16 mode) or int8 = q(u1 / su1) (w8a8)
+//   stage 1: up1 at (BR+2) x (BC+2) coarse positions, 256 channels, + b1
+//            (qh8: int32 * s1 + b1), PReLU; stored bf16 (bf16 mode) or
+//            int8 = q(u1 / su1) (w8a8, qh8)
 //   stage 2: up2 at 2BR x 2BC positions of the 2x grid, 256 channels, + b2
 //            (or int32 * s2 + b2), PReLU -> R, bf16 or q(R / sr) -> 1x1
-//            conv + b3 (or int32 * s3 + b3), tanh, bf16 rounding,
-//            u8 = trunc(clip((v+1)*127.5+0.5)).
+//            conv + b3 (or int32 * s3 + b3), tanh, bf16 rounding;
+//            u8 = trunc(clip((v+1)*127.5+0.5)), or the bf16 value (canvas).
 // q(x) rounds half to even and clips to +-127; u1 and R are quantised from
 // f32 (tail_srgan.py:239-241, :283).
 
@@ -76,12 +80,14 @@ constexpr int NP2 = YR * YC;                     // 160
 constexpr int P2 = 10;                           // per warp and pass
 constexpr int NPASS2 = (NP2 + NWARP * P2 - 1) / (NWARP * P2);
 
-template <bool Q8>
+template <int MODE>
 struct Layout {
+  static constexpr bool Q8 = MODE != BF16;
   using act_t = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  // output-conv weights: w8a8 int32 words [c][16]; bf16 f32 [c][64]
+  static constexpr int h_px = MODE == QH8 ? CIN : 2 * CIN;  // bytes per pixel
+  // output-conv weights: int8 modes int32 words [c][16]; bf16 f32 [c][64]
   static constexpr int w3_bytes = Q8 ? 3 * 16 * 4 : 3 * CIN * 4;
-  static constexpr int h_bytes = HR * HC * CIN * 2;
+  static constexpr int h_bytes = HR * HC * h_px;
   static constexpr int u1_bytes = NP1 * C1 * (int)sizeof(act_t);
   static constexpr int h_off = w3_bytes;
   static constexpr int u1_off = h_off + h_bytes;
@@ -90,29 +96,30 @@ struct Layout {
                 "16-byte shared loads need aligned buffers");
 };
 
-template <bool Q8>
+template <int MODE, bool CANVAS>
 __global__ void __launch_bounds__(NT, 2)
-tail64_u8_kernel(const __nv_bfloat16* __restrict__ h,
-                 uint8_t* __restrict__ out,
-                 const __nv_bfloat16* __restrict__ w1,
-                 const float* __restrict__ b1, const float* __restrict__ a1,
-                 const void* __restrict__ w2v, const float* __restrict__ b2,
-                 const float* __restrict__ a2, const void* __restrict__ w3v,
-                 const float* __restrict__ b3, const float* __restrict__ s2,
-                 const float* __restrict__ s3, float inv_su1, float inv_sr,
-                 int nx, int core_rows, int height, int width, int bgr) {
-  using L = Layout<Q8>;
+tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
+              const void* __restrict__ w1v, const float* __restrict__ b1,
+              const float* __restrict__ a1, const void* __restrict__ w2v,
+              const float* __restrict__ b2, const float* __restrict__ a2,
+              const void* __restrict__ w3v, const float* __restrict__ b3,
+              const float* __restrict__ s1, const float* __restrict__ s2,
+              const float* __restrict__ s3, float inv_su1, float inv_sr,
+              int nx, int core_rows, int height, int width, int bgr) {
+  using L = Layout<MODE>;
   using act_t = typename L::act_t;
+  using out_t =
+      typename std::conditional<CANVAS, __nv_bfloat16, uint8_t>::type;
+  constexpr bool Q8 = L::Q8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L::h_off);
   act_t* u1s = reinterpret_cast<act_t*>(smem + L::u1_off);
+  out_t* out = static_cast<out_t*>(outv);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * BC;   // first core col (core coords)
   const int r0 = blockIdx.y * BR;   // first core row
   const int n = blockIdx.z;
   const int tr = core_rows + 4;
-  const __nv_bfloat16* hn = h + (size_t)n * tr * T * CIN;
 
   // ---- stage 0: output-conv weights and the h patch (tile rows r0.., cols
   // c0..) into shared memory
@@ -126,73 +133,107 @@ tail64_u8_kernel(const __nv_bfloat16* __restrict__ h,
     for (int i = tid; i < 3 * CIN; i += NT)
       w3s[i] = __bfloat162float(w3[(i % CIN) * 3 + i / CIN]);
   }
-  for (int i = tid; i < HR * HC * 8; i += NT) {
-    const int px = i >> 3, part = i & 7;
-    const int y = r0 + px / HC, x = c0 + px % HC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (y < tr && x < T)
-      v = *reinterpret_cast<const uint4*>(hn + ((size_t)y * T + x) * CIN +
-                                          part * 8);
-    reinterpret_cast<uint4*>(hs)[i] = v;
-  }
+  load_patch<L::h_px, HR, HC>(h + (size_t)n * tr * T * L::h_px,
+                              reinterpret_cast<uint4*>(smem + L::h_off), r0,
+                              c0, tr, tid, NT);
   __syncthreads();
 
   // ---- stage 1: up1 at U1 position (i, j) = tile (r0+1+i, c0+1+j), reading
   // h patch (i+dy, j+dx).  Lane: channels o..o+3 of the half; warp:
   // positions warp+8m.  Sums run tap-major, then input channel, as the
-  // twin's _up1_sum, so w8a8 quantises the same u1.
+  // twin's _up1_sum, so w8a8 quantises the same u1 (qh8's integer sums are
+  // exact in any order).
 #pragma unroll 1
   for (int half = 0; half < 2; ++half) {
     const int o = half * HALF + lane * 4;
-    float acc[P1][4];
+    if constexpr (MODE == QH8) {
+      const int8_t* hs = reinterpret_cast<const int8_t*>(smem + L::h_off);
+      const int* w1 = static_cast<const int*>(w1v);          // (144, 256)
+      int acc[P1][4];
 #pragma unroll
-    for (int m = 0; m < P1; ++m)
+      for (int m = 0; m < P1; ++m)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[m][q] = 0;
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
 #pragma unroll 1
-      for (int c8 = 0; c8 < CIN; c8 += 8) {
-        float w[8][4];
+        for (int c16 = 0; c16 < CIN; c16 += 16) {
+          int w[4][4];
+          load_w16(w, w1 + (size_t)(tap * 16 + c16 / 4) * C1 + o, C1);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const uint2 wv = *reinterpret_cast<const uint2*>(
-              w1 + (size_t)(tap * CIN + c8 + k) * C1 + o);
-          w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
-          w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
-        }
-#pragma unroll
-        for (int m = 0; m < P1; ++m) {
-          const int p = warp + NWARP * m;
-          if (p < NP1) {
-            const int i = p / UC, j = p % UC;
-            float x[8];
-            unpack8(*reinterpret_cast<const uint4*>(
-                        hs + ((i + dy) * HC + (j + dx)) * CIN + c8), x);
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
+          for (int m = 0; m < P1; ++m) {
+            const int p = warp + NWARP * m;
+            if (p < NP1) {
+              const int i = p / UC, j = p % UC;
+              dp4a_16(acc[m],
+                      *reinterpret_cast<const uint4*>(
+                          hs + ((i + dy) * HC + (j + dx)) * CIN + c16),
+                      w);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int m = 0; m < P1; ++m) {
-      const int p = warp + NWARP * m;
-      if (p < NP1) {
-        float v[4];
+      for (int m = 0; m < P1; ++m) {
+        const int p = warp + NWARP * m;
+        if (p < NP1) {
+          float v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & (CIN - 1)]);
-        if constexpr (Q8) {
-          *reinterpret_cast<uint32_t*>(u1s + p * C1 + o) =
-              pack_s8x4(v, inv_su1);
-        } else {
-          *reinterpret_cast<uint2*>(u1s + p * C1 + o) =
-              make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+          for (int q = 0; q < 4; ++q)
+            v[q] = prelu(dequant(acc[m][q], s1[o + q], b1[o + q]),
+                         a1[(o + q) & (CIN - 1)]);
+          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
+        }
+      }
+    } else {
+      const __nv_bfloat16* hs =
+          reinterpret_cast<const __nv_bfloat16*>(smem + L::h_off);
+      const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(w1v);
+      float acc[P1][4];
+#pragma unroll
+      for (int m = 0; m < P1; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll 1
+        for (int c8 = 0; c8 < CIN; c8 += 8) {
+          float w[8][4];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const uint2 wv = *reinterpret_cast<const uint2*>(
+                w1 + (size_t)(tap * CIN + c8 + k) * C1 + o);
+            w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
+            w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
+          }
+#pragma unroll
+          for (int m = 0; m < P1; ++m) {
+            const int p = warp + NWARP * m;
+            if (p < NP1) {
+              const int i = p / UC, j = p % UC;
+              float x[8];
+              unpack8(*reinterpret_cast<const uint4*>(
+                          hs + ((i + dy) * HC + (j + dx)) * CIN + c8), x);
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                  acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < P1; ++m) {
+        const int p = warp + NWARP * m;
+        if (p < NP1) {
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & (CIN - 1)]);
+          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
         }
       }
     }
@@ -227,29 +268,17 @@ tail64_u8_kernel(const __nv_bfloat16* __restrict__ h,
 #pragma unroll 1
           for (int c16 = 0; c16 < CIN; c16 += 16) {
             int w[4][4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int4 wv = *reinterpret_cast<const int4*>(
-                  w2 + (size_t)(tap * 16 + c16 / 4 + k) * C1 + q0);
-              w[k][0] = wv.x; w[k][1] = wv.y; w[k][2] = wv.z; w[k][3] = wv.w;
-            }
+            load_w16(w, w2 + (size_t)(tap * 16 + c16 / 4) * C1 + q0, C1);
 #pragma unroll
             for (int m = 0; m < P2; ++m) {
               const int p = warp + NWARP * (pass * P2 + m);
               if (p < NP2) {
                 const int D = p / YC + du + 1, E = p % YC + dv + 1;
-                const uint4 a = *reinterpret_cast<const uint4*>(
-                    u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
-                    ((D & 1) * 2 + (E & 1)) * CIN + c16);
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                  int s = acc[m][q];
-                  s = __dp4a((int)a.x, w[0][q], s);
-                  s = __dp4a((int)a.y, w[1][q], s);
-                  s = __dp4a((int)a.z, w[2][q], s);
-                  s = __dp4a((int)a.w, w[3][q], s);
-                  acc[m][q] = s;
-                }
+                dp4a_16(acc[m],
+                        *reinterpret_cast<const uint4*>(
+                            u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
+                            ((D & 1) * 2 + (E & 1)) * CIN + c16),
+                        w);
               }
             }
           }
@@ -332,8 +361,9 @@ tail64_u8_kernel(const __nv_bfloat16* __restrict__ h,
             float y;
             if constexpr (Q8) y = dequant(sum, s3[sub], b3[sub]);
             else y = sum + b3[sub];
-            out[((size_t)gy * 4 * width + gx) * 3 + (bgr ? 2 - sub : sub)] =
-                to_u8(y);
+            store_px(out + ((size_t)gy * 4 * width + gx) * 3 +
+                         (bgr ? 2 - sub : sub),
+                     y);
           }
         }
       }
@@ -341,53 +371,50 @@ tail64_u8_kernel(const __nv_bfloat16* __restrict__ h,
   }
 }
 
-template <bool Q8>
-cudaError_t launch(const void* h, void* out, const void* w1, const void* b1,
-                   const void* a1, const void* w2, const void* b2,
-                   const void* a2, const void* w3, const void* b3,
-                   const void* s2, const void* s3, float inv_su1,
-                   float inv_sr, int n_tiles, int nx, int core_rows,
-                   int height, int width, int bgr, cudaStream_t stream) {
-  const int smem = Layout<Q8>::total;
+template <int MODE, bool CANVAS>
+cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
+  const int smem = Layout<MODE>::total;
   cudaError_t e = cudaFuncSetAttribute(
-      tail64_u8_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      tail64_kernel<MODE, CANVAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((CORE + BC - 1) / BC, (core_rows + BR - 1) / BR, n_tiles);
-  tail64_u8_kernel<Q8><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<uint8_t*>(out),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(a1), w2, static_cast<const float*>(b2),
-      static_cast<const float*>(a2), w3, static_cast<const float*>(b3),
-      static_cast<const float*>(s2), static_cast<const float*>(s3), inv_su1,
-      inv_sr, nx, core_rows, height, width, bgr);
+  const dim3 grid((CORE + BC - 1) / BC, (a.core_rows + BR - 1) / BR, n_tiles);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  tail64_kernel<MODE, CANVAS><<<grid, NT, smem, stream>>>(
+      static_cast<const unsigned char*>(a.h), a.out, a.w1, f(a.b1), f(a.a1),
+      a.w2, f(a.b2), f(a.a2), a.w3, f(a.b3), f(a.s1), f(a.s2), f(a.s3),
+      a.inv_su1, a.inv_sr, a.nx, a.core_rows, a.height, a.width, a.bgr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the fused SRGAN tail on `stream`; returns the cudaError_t of the
-// launch.  Arguments as dgt_tail_u8 (tail.cu), for 64 body channels:
-// bf16 mode (q8 = 0): w2 (576, 256) and w3 (64, 3) bf16; s2/s3 unused.
-// w8a8 mode (q8 = 1): w2 (144, 256) and w3 (3, 16) int32 words of 4 int8
-// along k, s2 (256,) and s3 (3,) f32 dequant scales.
-extern "C" int dgt_tail64_u8(const void* h, void* out, const void* w1,
-                             const void* b1, const void* a1, const void* w2,
-                             const void* b2, const void* a2, const void* w3,
-                             const void* b3, const void* s2, const void* s3,
-                             float inv_su1, float inv_sr, int q8,
-                             int n_tiles, int nx, int core_rows, int height,
-                             int width, int bgr, void* stream) {
-  if (n_tiles < 1 || nx < 1 || n_tiles % nx || core_rows < 1 ||
-      n_tiles > 65535 || (q8 && (!s2 || !s3)))
-    return (int)cudaErrorInvalidValue;
+// launch.  Arguments as dgt_tail (tail.cu), for 64 body channels: mode 0
+// bf16: h bf16, w1 and w2 (576, 256) and w3 (64, 3) bf16.  1 w8a8: w2
+// (144, 256) and w3 (3, 16) int32 words of 4 int8 along k, s2 (256,) and s3
+// (3,) f32 dequant scales.  2 qh8: as w8a8, with h int8 and w1 (144, 256)
+// int32 words, s1 (256,).  canvas = 1 writes the bf16 tanh (RGB only).
+extern "C" int dgt_tail64(const void* h, void* out, const void* w1,
+                          const void* b1, const void* a1, const void* w2,
+                          const void* b2, const void* a2, const void* w3,
+                          const void* b3, const void* s1, const void* s2,
+                          const void* s3, float inv_su1, float inv_sr,
+                          int mode, int canvas, int n_tiles, int nx,
+                          int core_rows, int height, int width, int bgr,
+                          void* stream) {
+  const Args a{h, out, w1, b1, a1, w2, b2, a2, w3, b3, s1, s2, s3,
+               inv_su1, inv_sr, nx, core_rows, height, width, bgr};
+  cudaError_t e = check_args(a, mode, canvas, n_tiles);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      q8 ? launch<true>(h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3,
-                        inv_su1, inv_sr, n_tiles, nx, core_rows, height,
-                        width, bgr, st)
-         : launch<false>(h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3,
-                         inv_su1, inv_sr, n_tiles, nx, core_rows, height,
-                         width, bgr, st);
+  switch (mode * 2 + (canvas ? 1 : 0)) {
+    case 0: e = launch<BF16, false>(a, n_tiles, st); break;
+    case 1: e = launch<BF16, true>(a, n_tiles, st); break;
+    case 2: e = launch<W8A8, false>(a, n_tiles, st); break;
+    case 3: e = launch<W8A8, true>(a, n_tiles, st); break;
+    case 4: e = launch<QH8, false>(a, n_tiles, st); break;
+    default: e = launch<QH8, true>(a, n_tiles, st); break;
+  }
   return (int)e;
 }

@@ -23,14 +23,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the C entry points and their argument types: every tail kernel takes
-# (h, out, w1, b1, a1, w2, b2, a2, w3, b3, s2, s3, inv_su1, inv_sr, q8,
-#  n_tiles, nx, core_rows, height, width, bgr, stream)
-_TAIL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_float] * 2
-              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# (h, out, w1, b1, a1, w2, b2, a2, w3, b3, s1, s2, s3, inv_su1, inv_sr,
+#  mode, canvas, n_tiles, nx, core_rows, height, width, bgr, stream)
+_TAIL_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_float] * 2
+              + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 # the inverted residual takes (x, out, we, be, wd, bd, wp, bp, n, h, w,
 # e_dim, residual, stream)
 _MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-ENTRY_POINTS = {"dgt_tail_u8": _TAIL_ARGS, "dgt_tail64_u8": _TAIL_ARGS,
+ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

@@ -1,14 +1,17 @@
-"""Fused FSRGAN tail: up1 -> up2 -> out_conv -> tanh -> crop-stitch -> u8.
+"""Fused FSRGAN tail: up1 -> up2 -> out_conv -> tanh -> crop-stitch -> u8
+(or a bf16 canvas).
 
 Counterpart of denoise_gan_tpu/ops/pallas/tail.py.  Three pieces:
 
 * weight preparation (``prep_weights``, ``prep_weights_q8``,
-  ``calibrate_tail_scales``, ``prepare_tail``) -> :class:`TailWeights`;
-* ``fused_tail_u8``, the wrapper of the CUDA kernel in ``csrc/tail.cu``;
-* ``fused_tail_u8_reference``, the kernel's plain PyTorch twin: the same
-  function with quantisation and rounding at the same points.  The wrapper
-  runs it for a tensor on the CPU; on a CUDA tensor it launches the kernel
-  or raises.
+  ``calibrate_tail_scales``, ``calibrate_h_scales``, ``prepare_tail``) ->
+  :class:`TailWeights`, and ``quantize_h``, the int8 input of qh8 mode;
+* the wrappers of the CUDA kernel in ``csrc/tail.cu``: ``fused_tail_u8``
+  (u8 epilogue) and ``fused_tail_canvas`` (canvas epilogue);
+* their plain PyTorch twins ``fused_tail_u8_reference`` and
+  ``fused_tail_canvas_reference``: the same function with quantisation and
+  rounding at the same points.  A wrapper runs its twin for a tensor on the
+  CPU; on a CUDA tensor it launches the kernel or raises.
 
 The weight preparation, the twin's arithmetic and the launch are written
 for any body width (CIN) and output-conv size; ops/tail_srgan.py reuses
@@ -20,7 +23,7 @@ cols [2, 122), i.e. fine [8, 8+4cr) x [8, 488), and the cores of an
 (ny, nx) grid tile the frame.  Every core pixel depends only on its own tile,
 so no SAME padding reaches the output.
 
-Modes (chosen by the weights):
+Modes (chosen by the weights, ``TailWeights.mode``):
 
 * bf16: bf16 operands, f32 sums; up1 and up2 outputs are rounded to bf16
   before the next conv.
@@ -31,9 +34,14 @@ Modes (chosen by the weights):
   (tail.py:439-453), a 3x3 output conv's taps that reach the neighbouring
   4-column group (output fine column 4j+f reading column 4j-1 or 4j+4)
   read R quantised from its bf16 copy instead.
+* qh8: w8a8, with h itself int8 (``quantize_h``: one step size per body
+  channel, calibrated as ``calibrate_h_scales``) and up1 int8 x int8 ->
+  int32, the h step sizes folded into W1 before its per-output-channel
+  quantisation (tail.py:179-213, :373-377).
 
-Epilogue: tanh is rounded to bf16, then u8 = trunc(clip((v+1)*127.5 + 0.5,
-0, 255)), RGB or BGR.
+Epilogues: tanh is rounded to bf16; u8 = trunc(clip((v+1)*127.5 + 0.5, 0,
+255)), RGB or BGR; the canvas is that bf16 value itself, RGB (the JAX
+package's ``build_fused_tail``, depth_to_space'd and cropped).
 """
 
 from __future__ import annotations
@@ -56,9 +64,18 @@ CORE = 120       # tile core width = column stride
 CIN = 32         # FSRGAN body output channels
 # Headroom over the calibration max (denoise_gan_tpu/ops/pallas/tail.py:625)
 Q8_MARGIN = 1.25
+MODES = ("bf16", "w8a8", "qh8")     # numbered as csrc/tail_common.cuh::Mode
 
-# Plain integers: the kernel's launches and the twin's calls.
-launch_counts = {"fused_tail_u8": 0, "fused_tail_u8_reference": 0}
+
+def mode_counts(*names: str) -> dict[str, int]:
+    """Launch counts keyed "<name>:<mode>", all zero."""
+    return {f"{n}:{m}": 0 for n in names for m in MODES}
+
+
+# Plain integers: the kernel's launches and the twins' calls, per mode.
+launch_counts = mode_counts("fused_tail_u8", "fused_tail_u8_reference",
+                            "fused_tail_canvas",
+                            "fused_tail_canvas_reference")
 
 
 @dataclass(frozen=True)
@@ -67,14 +84,18 @@ class TailWeights:
     channels (C = 32: FSRGAN, 3x3 output conv; C = 64: SRGAN, 1x1).  Conv
     rows are k = (dy*kw + dx)*C + cin (HWIO flattened); conv output channel
     q = (a*2 + b)*C + t goes to depth_to_space phase (a, b), channel t.
-    K3 = kh*kw*C is the output conv's depth.
+    K3 = kh*kw*C is the output conv's depth.  An int8 matrix of K rows is
+    packed (K/4, N, 4): 4 consecutive k of one column per int32 word.
 
-    bf16 mode: w2 (9C, 4C) and w3 (K3, 3) bf16.
-    w8a8 mode: w2 (9C/4, 4C, 4) int8 (4 consecutive k of one q per int32
-    word), w3 (3, K3) int8, and the dequant scales s2 (4C,), s3 (3,) f32
-    (weight scale x activation scale); inv_su1/inv_sr quantise u1 and R."""
+    bf16 mode: w1, w2 (9C, 4C) and w3 (K3, 3) bf16.
+    w8a8 mode: w1 as bf16; w2 int8 (9C/4, 4C, 4), w3 (3, K3) int8, and the
+    dequant scales s2 (4C,), s3 (3,) f32 (weight scale x activation scale);
+    inv_su1/inv_sr quantise u1 and R.
+    qh8 mode: as w8a8, with w1 int8 (9C/4, 4C, 4) of W1 times the h step
+    sizes, its dequant scales s1 (4C,), and inv_sh (C,), the reciprocal h
+    step sizes that ``quantize_h`` multiplies by."""
 
-    w1: torch.Tensor                 # (9C, 4C) bf16
+    w1: torch.Tensor
     b1: torch.Tensor                 # (4C,) f32
     a1: torch.Tensor                 # (C,) f32
     w2: torch.Tensor
@@ -86,10 +107,25 @@ class TailWeights:
     s3: torch.Tensor | None = None
     inv_su1: float = 0.0
     inv_sr: float = 0.0
+    s1: torch.Tensor | None = None
+    inv_sh: torch.Tensor | None = None
 
     @property
     def q8(self) -> bool:
         return self.s2 is not None
+
+    @property
+    def qh8(self) -> bool:
+        return self.s1 is not None
+
+    @property
+    def mode(self) -> str:
+        return "qh8" if self.qh8 else "w8a8" if self.q8 else "bf16"
+
+    @property
+    def h_dtype(self) -> torch.dtype:
+        """The dtype of the body output the tail takes."""
+        return torch.int8 if self.qh8 else torch.bfloat16
 
     @property
     def device(self) -> torch.device:
@@ -102,12 +138,16 @@ class TailWeights:
     def conv_weights(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(w1, w2, w3) as OIHW f32 (bf16 values, or int8 integers)."""
         c = self.cin
-        w2 = self.w2.permute(0, 2, 1).reshape(9 * c, 4 * c) if self.q8 \
-            else self.w2
+
+        def unpack(w):
+            return w.permute(0, 2, 1).reshape(-1, 4 * c)
+
+        w1 = unpack(self.w1) if self.qh8 else self.w1
+        w2 = unpack(self.w2) if self.q8 else self.w2
         w3 = self.w3.t() if self.q8 else self.w3
         k3 = math.isqrt(w3.shape[0] // c)
         return tuple(w.float().reshape(k, k, c, -1).permute(3, 2, 0, 1)
-                     for w, k in ((self.w1, 3), (w2, 3), (w3, k3)))
+                     for w, k in ((w1, 3), (w2, 3), (w3, k3)))
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +178,11 @@ def _quantize_per_output(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     s = np.abs(w).max(axis=(0, 1, 2)) / 127.0 + 1e-12
     q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
     return q, s.astype(np.float32)
+
+
+def _pack4(w: np.ndarray) -> np.ndarray:
+    """An int8 HWIO conv weight as (K/4, N, 4): 4 consecutive k per word."""
+    return w.reshape(-1, 4, w.shape[-1]).transpose(0, 2, 1)
 
 
 def prep_weights_q8(weights: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
@@ -198,12 +243,29 @@ def calibrate_tail_scales(tail: nn.Module, h_sample: torch.Tensor,
     return max(su1, 1e-9), max(sr, 1e-9)
 
 
+@torch.no_grad()
+def calibrate_h_scales(h_sample: torch.Tensor,
+                       margin: float = 1.0) -> np.ndarray:
+    """Per-channel int8 step sizes of the body output for the qh8 tail:
+    sH[c] = max|h[..., c]| over the sample tiles (NHWC) times margin / 127,
+    floored at 1e-9, in f32 as tail.py:167-176 computes them."""
+    m = h_sample.float().abs().amax(dim=tuple(range(h_sample.dim() - 1)))
+    m = m.cpu().numpy()
+    return np.maximum(m * np.float32(margin) / np.float32(127.0),
+                      np.float32(1e-9)).astype(np.float32)
+
+
 def prepare_tail(tail: nn.Module, q8_calib: torch.Tensor | None = None,
-                 device: torch.device | str | None = None) -> TailWeights:
+                 device: torch.device | str | None = None,
+                 qh8: bool = False) -> TailWeights:
     """TailWeights for `tail` (FSRGANTail or SRGANTail) on `device`
     (default: the tail's).  With q8_calib (sample body-output tiles, NHWC)
     the tail runs w8a8 with activation scales calibrated on it at
-    Q8_MARGIN; else bf16."""
+    Q8_MARGIN, or qh8 when `qh8` (the h step sizes calibrated on it too);
+    else bf16.  qh8 without q8_calib raises ValueError."""
+    if qh8 and q8_calib is None:
+        raise ValueError("qh8 calibrates its h step sizes on q8_calib, and "
+                         "none was given")
     dev = torch.device(device) if device is not None else \
         tail.out_conv.weight.device
     w = prep_weights(tail)
@@ -221,12 +283,27 @@ def prepare_tail(tail: nn.Module, q8_calib: torch.Tensor | None = None,
                            **common)
     w = prep_weights_q8(w)
     su1, sr = calibrate_tail_scales(tail, q8_calib, margin=Q8_MARGIN)
-    w2q = w["W2q"].reshape(k // 4, 4, n).transpose(0, 2, 1)
+    if qh8:
+        sh = calibrate_h_scales(q8_calib, margin=Q8_MARGIN)
+        w1q, s1 = _quantize_per_output(w["W1"] * sh[:, None])
+        common.update(w1=t(_pack4(w1q), torch.int8), s1=t(s1),
+                      inv_sh=t(np.float32(1.0) / sh))
     return TailWeights(
-        w2=t(w2q, torch.int8), w3=t(w["W3q"].reshape(-1, 3).T, torch.int8),
+        w2=t(_pack4(w["W2q"]), torch.int8),
+        w3=t(w["W3q"].reshape(-1, 3).T, torch.int8),
         s2=t(w["s2w"] * np.float32(su1)), s3=t(w["s3w"] * np.float32(sr)),
         inv_su1=float(np.float32(1.0 / su1)),
         inv_sr=float(np.float32(1.0 / sr)), **common)
+
+
+def quantize_h(h: torch.Tensor, tw: TailWeights) -> torch.Tensor:
+    """The qh8 tail's input: clip(round(f32(h) * inv_sh), +-127) as int8,
+    per body channel, rounding half to even (make_h3_q8, tail.py:196-213,
+    in the port's NHWC layout).  h: (N, TR, T, C) body output."""
+    if not tw.qh8:
+        raise ValueError(f"quantize_h needs qh8 tail weights, got {tw.mode}")
+    q = torch.round(h.float() * tw.inv_sh)
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +320,26 @@ def _quant(x: torch.Tensor, inv: float) -> torch.Tensor:
 def _to_u8(v: torch.Tensor) -> torch.Tensor:
     u = (_bf16(v) + 1.0) * 127.5 + 0.5
     return torch.clamp(u, 0.0, 255.0).to(torch.uint8)
+
+
+def _to_canvas(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16)
+
+
+def _tanh(y: torch.Tensor) -> torch.Tensor:
+    """torch.tanh, single-threaded on the CPU.  Multi-threaded, PyTorch's
+    CPU tanh gives one thread's share of the elements a less accurate
+    result in some processes and not in others (up to 1.5e-5 apart; seen
+    with MKL on AVX-512), so the twin's bytes would change from run to run.
+    On the card it is the kernel's tanhf."""
+    if y.device.type != "cpu":
+        return torch.tanh(y)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch.tanh(y)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _up1_sum(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
@@ -275,13 +372,17 @@ def _edge_taps(d: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     return torch.where(f == 0, left, 0.0) + torch.where(f == 3, right, 0.0)
 
 
-def _tail_tiles_u8(h: torch.Tensor, tw: TailWeights) -> torch.Tensor:
-    """(n, TR, T, C) bf16 tiles -> (n, 4TR, 4T, 3) uint8, per-tile SAME.
-    Columns are tile-local, so column 4j starts a 4-column group."""
+def _tail_tiles(h: torch.Tensor, tw: TailWeights) -> torch.Tensor:
+    """(n, TR, T, C) tiles (bf16, or int8 for qh8) -> (n, 4TR, 4T, 3) f32
+    tanh, per-tile SAME.  Columns are tile-local, so column 4j starts a
+    4-column group."""
     w1, w2, w3 = tw.conv_weights()
     x = h.float().permute(0, 3, 1, 2)
-    u1 = _prelu(depth_to_space_nchw(_up1_sum(x, w1) + _bias(tw.b1), 2),
-                tw.a1)
+    if tw.qh8:       # integer sums, exact in f32 (|sum| <= 127*127*9C)
+        c1 = _conv(x, w1) * _bias(tw.s1) + _bias(tw.b1)
+    else:
+        c1 = _up1_sum(x, w1) + _bias(tw.b1)
+    u1 = _prelu(depth_to_space_nchw(c1, 2), tw.a1)
     if tw.q8:
         c2 = _conv(_quant(u1, tw.inv_su1), w2) * _bias(tw.s2) + _bias(tw.b2)
         r = _prelu(depth_to_space_nchw(c2, 2), tw.a2)
@@ -294,15 +395,16 @@ def _tail_tiles_u8(h: torch.Tensor, tw: TailWeights) -> torch.Tensor:
         c2 = _conv(_bf16(u1), w2) + _bias(tw.b2)
         r = _prelu(depth_to_space_nchw(c2, 2), tw.a2)
         y = _conv(_bf16(r), w3) + _bias(tw.b3)
-    return _to_u8(torch.tanh(y)).permute(0, 2, 3, 1)
+    return _tanh(y).permute(0, 2, 3, 1)
 
 
 def _check(h: torch.Tensor, tw: TailWeights, cin: int, ny: int, nx: int,
-           height: int, width: int) -> int:
+           height: int, width: int, bgr: bool, canvas: bool) -> int:
     """Validate a tail's inputs for a body of `cin` channels; returns
     core_rows."""
-    if h.dtype != torch.bfloat16 or h.dim() != 4 or h.shape[2:] != (T, cin):
-        raise ValueError(f"h must be (N, core_rows+4, {T}, {cin}) bf16, got "
+    if h.dtype != tw.h_dtype or h.dim() != 4 or h.shape[2:] != (T, cin):
+        raise ValueError(f"h must be (N, core_rows+4, {T}, {cin}) "
+                         f"{tw.h_dtype} for {tw.mode} tail weights, got "
                          f"{tuple(h.shape)} {h.dtype}")
     if tw.cin != cin:
         raise ValueError(f"tail weights are for {tw.cin} channels, this "
@@ -318,17 +420,23 @@ def _check(h: torch.Tensor, tw: TailWeights, cin: int, ny: int, nx: int,
         raise ValueError("h must be contiguous")
     if tw.device != h.device:
         raise ValueError(f"tail weights on {tw.device}, h on {h.device}")
+    if canvas and bgr:
+        raise ValueError("the canvas epilogue writes RGB; BGR needs the u8 "
+                         "epilogue")
     return cr
 
 
 @torch.no_grad()
 def _twin_frame(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
-                cr: int, height: int, width: int, bgr: bool) -> torch.Tensor:
-    """The twins' common body: the tail per 16 tiles, crop-stitch, u8."""
+                cr: int, height: int, width: int, bgr: bool,
+                canvas: bool) -> torch.Tensor:
+    """The twins' common body: the tail per 16 tiles, crop-stitch, and the
+    u8 or canvas epilogue."""
+    epilogue = _to_canvas if canvas else _to_u8
     cores = []
     with _exact_f32():
         for s in range(0, h.shape[0], 16):
-            fine = _tail_tiles_u8(h[s:s + 16], tw)
+            fine = epilogue(_tail_tiles(h[s:s + 16], tw))
             cores.append(fine[:, 8:8 + 4 * cr, 8:8 + 4 * CORE])
     core = torch.cat(cores).reshape(ny, nx, 4 * cr, 4 * CORE, 3)
     frame = core.permute(0, 2, 1, 3, 4).reshape(ny * 4 * cr, nx * 4 * CORE, 3)
@@ -336,21 +444,40 @@ def _twin_frame(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
     return (frame.flip(-1) if bgr else frame).contiguous()
 
 
+def run_twin(name: str, counts: dict[str, int], cin: int, h: torch.Tensor,
+             tw: TailWeights, ny: int, nx: int, height: int, width: int,
+             bgr: bool, canvas: bool) -> torch.Tensor:
+    """A twin's call: check, count under `name`, compute."""
+    cr = _check(h, tw, cin, ny, nx, height, width, bgr, canvas)
+    counts[f"{name}:{tw.mode}"] += 1
+    return _twin_frame(h, tw, ny, nx, cr, height, width, bgr, canvas)
+
+
 def fused_tail_u8_reference(h: torch.Tensor, tw: TailWeights, ny: int,
                             nx: int, height: int, width: int,
                             bgr: bool = False) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: per tile conv -> d2s -> PReLU
     twice, then the output conv and tanh, then crop-stitch and u8.
-    h: (ny*nx, cr+4, 124, 32) bf16 body output.  Returns the
-    (4*height, 4*width, 3) uint8 frame.  Runs 16 tiles at a time to bound
-    memory.  up1 sums in the kernel's order (_up1_sum); the
-    other convs run at full f32 precision (cuDNN and TF32 off), and the
-    w8a8 ones sum integers in f32, which is exact since |sum| <=
-    127*127*288 < 2**24.  So w8a8 matches the kernel bit for bit but for
-    tanh; bf16 differs where up2's and the output conv's sums round apart."""
-    cr = _check(h, tw, CIN, ny, nx, height, width)
-    launch_counts["fused_tail_u8_reference"] += 1
-    return _twin_frame(h, tw, ny, nx, cr, height, width, bgr)
+    h: (ny*nx, cr+4, 124, 32) body output, bf16 (int8 for qh8 weights,
+    from :func:`quantize_h`).  Returns the (4*height, 4*width, 3) uint8
+    frame.  Runs 16 tiles at a time to bound memory.  up1 sums in the
+    kernel's order (_up1_sum; qh8: integers, exact in any order); the other
+    convs run at full f32 precision (cuDNN and TF32 off), and the int8 ones
+    sum integers in f32, which is exact since |sum| <= 127*127*288 < 2**24.
+    So w8a8 and qh8 match the kernel bit for bit but for tanh; bf16 differs
+    where up2's and the output conv's sums round apart."""
+    return run_twin("fused_tail_u8_reference", launch_counts, CIN, h, tw,
+                    ny, nx, height, width, bgr, canvas=False)
+
+
+def fused_tail_canvas_reference(h: torch.Tensor, tw: TailWeights, ny: int,
+                                nx: int, height: int, width: int,
+                                bgr: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of the canvas epilogue: as
+    :func:`fused_tail_u8_reference`, returning the (4*height, 4*width, 3)
+    bf16 frame of tanh, RGB; bgr=True raises ValueError."""
+    return run_twin("fused_tail_canvas_reference", launch_counts, CIN, h, tw,
+                    ny, nx, height, width, bgr, canvas=True)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +488,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _launch(entry: str, h: torch.Tensor, tw: TailWeights, nx: int, cr: int,
-            height: int, width: int, bgr: bool) -> torch.Tensor:
+            height: int, width: int, bgr: bool,
+            canvas: bool) -> torch.Tensor:
     """One launch of the tail kernel `entry` (a C function of the kernels'
     library; both tails share its signature) on h's device; raises unless
     that is a CUDA device."""
@@ -371,17 +499,33 @@ def _launch(entry: str, h: torch.Tensor, tw: TailWeights, nx: int, cr: int,
     from denoise_gan_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library(), entry)
-    out = torch.empty((4 * height, 4 * width, 3), dtype=torch.uint8,
+    out = torch.empty((4 * height, 4 * width, 3),
+                      dtype=torch.bfloat16 if canvas else torch.uint8,
                       device=h.device)
     with torch.cuda.device(h.device):     # the launch uses the current device
         err = fn(_ptr(h), _ptr(out), _ptr(tw.w1), _ptr(tw.b1), _ptr(tw.a1),
                  _ptr(tw.w2), _ptr(tw.b2), _ptr(tw.a2), _ptr(tw.w3),
-                 _ptr(tw.b3), _ptr(tw.s2), _ptr(tw.s3),
+                 _ptr(tw.b3), _ptr(tw.s1), _ptr(tw.s2), _ptr(tw.s3),
                  ctypes.c_float(tw.inv_su1), ctypes.c_float(tw.inv_sr),
-                 int(tw.q8), h.shape[0], nx, cr, height, width, int(bgr),
+                 MODES.index(tw.mode), int(canvas), h.shape[0], nx, cr,
+                 height, width, int(bgr),
                  torch.cuda.current_stream(h.device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return out
+
+
+def run_kernel(name: str, counts: dict[str, int], entry: str, twin,
+               cin: int, h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
+               height: int, width: int, bgr: bool,
+               canvas: bool) -> torch.Tensor:
+    """A wrapper's call: the twin for h on the CPU, else one launch of the
+    C function `entry`, counted under `name`, or an exception."""
+    cr = _check(h, tw, cin, ny, nx, height, width, bgr, canvas)
+    if h.device.type == "cpu":
+        return twin(h, tw, ny, nx, height, width, bgr)
+    out = _launch(entry, h, tw, nx, cr, height, width, bgr, canvas)
+    counts[f"{name}:{tw.mode}"] += 1
     return out
 
 
@@ -390,9 +534,17 @@ def fused_tail_u8(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
     """The fused tail as one CUDA kernel launch (csrc/tail.cu); same
     contract as :func:`fused_tail_u8_reference`, which runs instead when h
     lies on the CPU.  Any other device launches the kernel or raises."""
-    cr = _check(h, tw, CIN, ny, nx, height, width)
-    if h.device.type == "cpu":
-        return fused_tail_u8_reference(h, tw, ny, nx, height, width, bgr)
-    out = _launch("dgt_tail_u8", h, tw, nx, cr, height, width, bgr)
-    launch_counts["fused_tail_u8"] += 1
-    return out
+    return run_kernel("fused_tail_u8", launch_counts, "dgt_tail",
+                      fused_tail_u8_reference, CIN, h, tw, ny, nx, height,
+                      width, bgr, canvas=False)
+
+
+def fused_tail_canvas(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
+                      height: int, width: int,
+                      bgr: bool = False) -> torch.Tensor:
+    """The fused tail with the canvas epilogue as one CUDA kernel launch
+    (csrc/tail.cu); same contract as :func:`fused_tail_canvas_reference`,
+    which runs instead when h lies on the CPU."""
+    return run_kernel("fused_tail_canvas", launch_counts, "dgt_tail",
+                      fused_tail_canvas_reference, CIN, h, tw, ny, nx,
+                      height, width, bgr, canvas=True)

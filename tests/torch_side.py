@@ -187,16 +187,23 @@ def seeded_srgan(seed):
 # ops/tail.py, ops/tail_srgan.py
 
 # family: (tail module, body channels, prepare, kernel wrapper, twin,
-#          launch counts)
+#          launch counts, canvas wrapper, canvas twin)
 _FAMILIES = {
     "fsrgan": (tfsrgan.FSRGANTail, 32, ttail.prepare_tail,
                ttail.fused_tail_u8, ttail.fused_tail_u8_reference,
-               ttail.launch_counts),
+               ttail.launch_counts, ttail.fused_tail_canvas,
+               ttail.fused_tail_canvas_reference),
     "srgan": (tsrgan.SRGANTail, 64, ttail_srgan.prepare_tail64,
               ttail_srgan.fused_tail64_u8,
               ttail_srgan.fused_tail64_u8_reference,
-              ttail_srgan.launch_counts),
+              ttail_srgan.launch_counts, ttail_srgan.fused_tail64_canvas,
+              ttail_srgan.fused_tail64_canvas_reference),
 }
+
+
+def _fired(before: dict, after: dict) -> dict:
+    """The launch counts that moved between two snapshots."""
+    return {k: after[k] - before[k] for k in before if after[k] != before[k]}
 
 
 def _tail(params, family="fsrgan"):
@@ -214,33 +221,66 @@ def calibrate(params, h, family="fsrgan"):
     return scales, ttail.Q8_MARGIN
 
 
+def _tail_weights(params, ht, mode, family):
+    """The family's TailWeights in `mode` (bf16, w8a8 or qh8); the int8
+    modes calibrate on the bf16 tiles ht themselves."""
+    prepare = _FAMILIES[family][2]
+    calib = None if mode == "bf16" else ht
+    return prepare(_tail(params, family), q8_calib=calib, qh8=mode == "qh8")
+
+
 def twin(params, h, ny, nx, height, width, q8=False, bgr=False,
-         family="fsrgan"):
-    """The twin's u8 frame, and whether the weights were w8a8; w8a8
-    calibrates on h itself."""
-    _, _, prepare, _, twin_fn, _ = _FAMILIES[family]
+         family="fsrgan", mode=None, canvas=False):
+    """The twin's frame (u8, or with `canvas` the bf16 canvas as f32) and
+    whether the weights were int8.  mode (bf16, w8a8, qh8) defaults to
+    w8a8 when q8 else bf16; the int8 modes calibrate on h itself, and qh8
+    quantises h with quantize_h."""
+    twin_fn = _FAMILIES[family][7 if canvas else 4]
     ht = _bf16(h)
-    tw = prepare(_tail(params, family), q8_calib=ht if q8 else None)
-    return twin_fn(ht, tw, ny, nx, height, width, bgr).numpy(), tw.q8
+    tw = _tail_weights(params, ht, mode or ("w8a8" if q8 else "bf16"),
+                       family)
+    if tw.qh8:
+        ht = ttail.quantize_h(ht, tw)
+    return _np(twin_fn(ht, tw, ny, nx, height, width, bgr)), tw.q8
+
+
+def h_scales(h):
+    """calibrate_h_scales of the bf16 tiles h at Q8_MARGIN."""
+    return ttail.calibrate_h_scales(_bf16(h), margin=ttail.Q8_MARGIN)
+
+
+def qh8_weights(params, h, family="fsrgan"):
+    """The qh8 TailWeights' up1 calibrated on h: w1 unpacked to (9C, 4C)
+    int8 (k = (dy*3 + dx)*C + cin), s1 (4C,) and inv_sh (C,)."""
+    tw = _tail_weights(params, _bf16(h), "qh8", family)
+    w1 = tw.w1.permute(0, 2, 1).reshape(-1, tw.w1.shape[1])
+    return dict(w1=_np(w1), s1=_np(tw.s1), inv_sh=_np(tw.inv_sh),
+                mode=tw.mode, h_dtype=str(tw.h_dtype))
+
+
+def quantized_h(params, h, family="fsrgan"):
+    """quantize_h of the bf16 tiles h, with qh8 weights calibrated on h."""
+    ht = _bf16(h)
+    return _np(ttail.quantize_h(ht, _tail_weights(params, ht, "qh8",
+                                                  family)))
 
 
 def wrapper_on_cpu(params, h, ny, nx, height, width, family="fsrgan"):
     """(wrapper's frame, twin's frame, launch-count increments)."""
-    _, _, prepare, kernel, twin_fn, counts = _FAMILIES[family]
+    _, _, prepare, kernel, twin_fn, counts = _FAMILIES[family][:6]
     ht = _bf16(h)
     tw = prepare(_tail(params, family))
     before = dict(counts)
     got = kernel(ht, tw, ny, nx, height, width)
     want = twin_fn(ht, tw, ny, nx, height, width)
-    return got.numpy(), want.numpy(), {
-        k: counts[k] - before[k] for k in before}
+    return got.numpy(), want.numpy(), _fired(before, counts)
 
 
 def wrapper_off_cpu_without_cuda(params, ny, nx, core_rows, height, width,
                                  family="fsrgan"):
     """Call the wrapper on a tensor that is not on the CPU, with CUDA
     reading as absent: raises."""
-    _, cin, prepare, kernel, _, _ = _FAMILIES[family]
+    _, cin, prepare, kernel = _FAMILIES[family][:4]
     tw = prepare(_tail(params, family), device="meta")
     h = torch.empty((ny * nx, core_rows + 4, ttail.T, cin),
                     dtype=torch.bfloat16, device="meta")
@@ -295,12 +335,21 @@ def build_without_nvcc(empty_dir):
 
 def wrapper_bad_input(params, h, ny, nx, height, width, bad,
                       family="fsrgan"):
-    """Call the wrapper with one input spoilt as `bad` names; raises."""
-    _, _, prepare, kernel, _, _ = _FAMILIES[family]
+    """Call the wrapper with one input spoilt as `bad` names; raises.
+    "canvas_bgr": the canvas wrapper asked for BGR; "<mode>_<dtype>_h": h
+    of a dtype that the mode's weights do not take."""
+    _, _, prepare, kernel = _FAMILIES[family][:4]
     ht = _bf16(h)
     args = dict(h=ht, tw=prepare(_tail(params, family)), ny=ny, nx=nx,
                 height=height, width=width)
-    if bad == "weights":      # the other family's tail weights
+    if bad == "canvas_bgr":
+        kernel = _FAMILIES[family][6]
+        args["bgr"] = True
+    elif bad.endswith("_h"):
+        mode, dtype = bad.split("_")[:2]
+        args["tw"] = _tail_weights(params, ht, mode, family)
+        args["h"] = ht.to(getattr(torch, dtype))
+    elif bad == "weights":      # the other family's tail weights
         other = "srgan" if family == "fsrgan" else "fsrgan"
         gen = torch.Generator().manual_seed(0)
         args["tw"] = _FAMILIES[other][2](
@@ -404,38 +453,88 @@ def _launch_counts():
 
 def engine_frames(params, stats, height, width, brc, frames, calib=None,
                   bgr=False, family="fsrgan", u8_input=False,
-                  bgr_input=False, calib_frames=None):
-    """The family's kernel engine's u8 output for each frame (float [0, 1],
-    or uint8 with u8_input), and the increments of both tails' launch
-    counts.  w8a8 when `calib`, the index of the calibration frame in
-    `calib_frames` (default `frames`), is given."""
+                  bgr_input=False, calib_frames=None, qh8=False,
+                  out_uint8=True):
+    """The family's kernel engine's output for each frame (float [0, 1],
+    or uint8 with u8_input), and the launch counts of both tails that
+    moved.  w8a8 (qh8 with `qh8`) when `calib`, the index of the
+    calibration frame in `calib_frames` (default `frames`), is given."""
     calib_frames = frames if calib_frames is None else calib_frames
     q8_frame = None if calib is None else torch.from_numpy(
         calib_frames[calib])
     run = _BUILDERS[family][1](_generator(params, stats, family), height,
                                width, brc=brc, q8_calib_frame=q8_frame,
                                bgr=bgr, u8_input=u8_input,
-                               bgr_input=bgr_input)
+                               bgr_input=bgr_input, qh8=qh8,
+                               out_uint8=out_uint8)
     before = _launch_counts()
     outs = [run(torch.from_numpy(f)).numpy() for f in frames]
-    after = _launch_counts()
-    return outs, {k: after[k] - before[k] for k in before}
+    return outs, _fired(before, _launch_counts())
 
 
 def mbconv_engine_frames(params, stats, height, width, brc, frames,
-                         calib=None):
+                         calib=None, qh8=False):
     """The K3-body FSRGAN engine (prepare_mbconv_fsrgan_engine wired by
-    build_kernel_engine) on each frame, w8a8 calibrated on frames[calib]
-    when it is given; and the increments of the launch counts."""
+    build_kernel_engine) on each frame, w8a8 (qh8 with `qh8`) calibrated on
+    frames[calib] when it is given; and the launch counts that moved."""
     q8_frame = None if calib is None else torch.from_numpy(frames[calib])
     body, tw, brc = tke.prepare_mbconv_fsrgan_engine(
         _generator(params, stats), height, width, brc=brc,
-        q8_calib_frame=q8_frame)
+        q8_calib_frame=q8_frame, qh8=qh8)
     run = tke.build_kernel_engine(body, tw, height, width, brc=brc)
     before = {**_launch_counts(), **tmbconv.launch_counts}
     outs = [run(torch.from_numpy(f)).numpy() for f in frames]
-    after = {**_launch_counts(), **tmbconv.launch_counts}
-    return outs, {k: after[k] - before[k] for k in before}
+    return outs, _fired(before, {**_launch_counts(), **tmbconv.launch_counts})
+
+
+def chip_smoke_trees(family):
+    """The Flax-layout (params, batch_stats) trees of the seeded generator
+    that chip_smoke.py drives on the card for `family` (its seed, its
+    order of families)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(chip_smoke.SEED)
+    trees = {}
+    for fam in chip_smoke.FAMILIES:
+        model = build_generator(fam.name, device="cpu")
+        trees[fam.name] = chip_smoke.seeded_flax_tree(
+            model, rng, fam.body_gain, fam.out_gain)
+    return trees[family]
+
+
+def chip_smoke_jax_init_trees(family):
+    """chip_smoke.py's numpy draw of the JAX package's initialisers for
+    `family` (phase 4d's JAX-init weights, at its seed)."""
+    import chip_smoke
+
+    model = build_generator(family, device="cpu")
+    return chip_smoke.jax_init_tree(model, np.random.default_rng(
+        chip_smoke.SEED), family)
+
+
+def whole_frame_and_engines(params, stats, frame, brc, family="fsrgan"):
+    """chip_smoke.py's exact whole-frame output of `frame` (the plain bf16
+    generator) and the family's engine outputs on it in bf16, w8a8 and qh8
+    (the int8 modes calibrated on the frame), as uint8 arrays."""
+    import chip_smoke
+
+    fam = next(f for f in chip_smoke.FAMILIES if f.name == family)
+    model = _generator(params, stats, family)
+    f = torch.from_numpy(frame)
+    height, width = frame.shape[:2]
+    outs = {}
+    for mode, kw in (("bf16", {}), ("w8a8", {"q8_calib_frame": f}),
+                     ("qh8", {"q8_calib_frame": f, "qh8": True})):
+        outs[mode] = fam.build(model, height, width, brc=brc, **kw)(f).numpy()
+    return chip_smoke.exact_frame(fam, model, f).numpy(), outs
+
+
+def engine_qh8_without_calibration(params, stats, height, width, brc,
+                                   family="fsrgan"):
+    """Build the family's engine with qh8 and no calibration frame;
+    raises."""
+    _BUILDERS[family][1](_generator(params, stats, family), height, width,
+                         brc=brc, qh8=True)
 
 
 def engine_tiles(frame, height, width, brc):
@@ -471,7 +570,8 @@ def cuda_available():
 
 
 def _cuda_tails(family):
-    """bf16 and w8a8 TailWeights of a seeded tail of `family` on the card.
+    """bf16, w8a8 and qh8 TailWeights of a seeded tail of `family` on the
+    card.
     Biases and slopes are redrawn; SRGAN's N(0, 0.02) kernels are redrawn
     at N(0, 1/fan_in) so that the output is not flat."""
     if family not in _CUDA_TAILS:
@@ -490,34 +590,43 @@ def _cuda_tails(family):
         tail = tail.to(dev)
         calib = (torch.randn((4, 28, ttail.T, cin), generator=gen)
                  * 0.5).to(dev, torch.bfloat16)
-        _CUDA_TAILS[family] = dict(bf16=prepare(tail),
-                                   w8a8=prepare(tail, q8_calib=calib))
+        _CUDA_TAILS[family] = dict(
+            bf16=prepare(tail), w8a8=prepare(tail, q8_calib=calib),
+            qh8=prepare(tail, q8_calib=calib, qh8=True))
     return _CUDA_TAILS[family]
 
 
 def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr,
-                        family="fsrgan"):
-    """The tail kernel of `family` and its twin on one seeded h on the card:
-    a dict of the kernel's output shape, dtype and device, its launch-count
-    increment, max |du8| and the share of bytes that differ, and the kernel
-    output's smallest per-channel std."""
-    _, cin, _, kernel, twin_fn, counts = _FAMILIES[family]
-    name = kernel.__name__
+                        family="fsrgan", canvas=False):
+    """The tail kernel of `family` (u8, or with `canvas` the canvas
+    epilogue) and its twin on one seeded h on the card (qh8: h through
+    quantize_h): a dict of the kernel's output shape, dtype and device, its
+    launch-count increment, the max |difference| (u8 levels, or for the
+    canvas tanh's units) and the share of outputs that differ, and the
+    smallest per-channel std of the output on the u8 scale."""
+    fam = _FAMILIES[family]
+    cin, counts = fam[1], fam[5]
+    kernel, twin_fn = (fam[6], fam[7]) if canvas else (fam[3], fam[4])
     gen = torch.Generator().manual_seed(core_rows * 1000 + width)
     h = (torch.randn((ny * nx, core_rows + 4, ttail.T, cin), generator=gen)
          * 0.5).to("cuda", torch.bfloat16)
-    args = (h, _cuda_tails(family)[mode], ny, nx, height, width, bgr)
-    before = counts[name]
+    tw = _cuda_tails(family)[mode]
+    if tw.qh8:
+        h = ttail.quantize_h(h, tw)
+    args = (h, tw, ny, nx, height, width, bgr)
+    key = f"{kernel.__name__}:{mode}"
+    before = counts[key]
     got = kernel(*args)
     torch.cuda.synchronize()
-    launches = counts[name] - before
+    launches = counts[key] - before
     want = twin_fn(*args)
-    d = (got.int() - want.int()).abs()
+    d = (got.float() - want.float()).abs()
+    scale = (got.float() + 1) * 127.5 if canvas else got.float()
     return dict(shape=tuple(got.shape), want_shape=tuple(want.shape),
                 dtype=str(got.dtype), device=got.device.type,
-                launches=launches, max_diff=int(d.max()),
+                launches=launches, max_diff=float(d.max()),
                 frac_diff=float((d > 0).float().mean()),
-                std_min=float(got.float().std(dim=(0, 1)).min()))
+                std_min=float(scale.std(dim=(0, 1)).min()))
 
 
 def _seeded_block(gen, expand, device):
