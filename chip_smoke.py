@@ -22,6 +22,20 @@ Phases, each printed on its own line:
    the expand, on the seeded FSRGAN blocks (non-zero BN statistics, so
    relu(be) > 0 and the zero ring of the expanded tensor matters).  Target:
    bit-identical; bound: within 1 bf16 ulp on < 1e-3 of the outputs.
+3d. The probes vs their plain versions at the JAX probes' shapes (no frame
+   path runs them).  K9 (csrc/probe_fma.cu) at x (512, 1024), seeded as
+   tools/exp_vpu_peak.py: the FMA chain (256 steps) and the roll + FMA
+   chain (128 steps) bit-identical to their plain versions, which round
+   each multiply-add once as fmaf does (fma_peak.fma_f32).  K6 (csrc/probe_mma.cu) at y
+   (K, 3840), K in (128, 384, 1152), from the probe's initial state: int8
+   bit-identical to the float64 plain version after 2000 steps (there it
+   saturates at 127 within two steps, so also from a random state of both
+   signs after RANDOM_STEPS steps); bf16 at steps 1-16 only (the chain
+   overflows to inf, then NaN, well before step 100), each step from the
+   kernel's previous state within int8_chain.bf16_step_bound (one bf16
+   rounding after f32 sums in another order), rows >= 128 unchanged, and
+   one 16-step launch equal to the 16 single steps; the same from a random
+   state.
 4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine on
    two alternating seeded frames, once per main path: w8a8 (calibrated on
@@ -88,7 +102,19 @@ Phases, each printed on its own line:
    each beside the card's name and power limit.  Each kernel's bound (the
    larger of its bytes over 3.35 TB/s and its operations over the
    tensor-core peak for their type) is computed from the main path's
-   shapes.
+   shapes.  The probes: K9's ms per launch over 32 chained launches (the
+   JAX probe's time_chained) at its iterations (printed: a few
+   microseconds of work, where the wrapper's host time between launches
+   dominates) and at LONG_ITERS (the kernels line, with the plain version
+   timed once at the same count and held bit-identical there; the roll
+   chain also on 4096 rows, 8 warps to a scheduler, printed), beside the
+   FP32 peak (SMs x 128 lanes x 2 x clocks.max.sm); torch.matmul at the
+   JAX probe's matmul shapes (the cuBLAS yardstick); K6's ms per 2000-step
+   chain per K and type, its i8/bf16 ratio, its plain version, one step's
+   product by torch.matmul / torch._int_mm (printed) and the whole chain
+   through those calls (int8_chain.library_chain: library_ms).  Their
+   bounds: K9's operations over the FP32 peak, K6's over the bf16 or int8
+   tensor-core peak.
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -97,7 +123,6 @@ is the kernels' JSON record, the last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
-import subprocess
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -114,6 +139,8 @@ from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
+from denoise_gan_tpu_torch.probes import fma_peak, int8_chain
+from denoise_gan_tpu_torch.utils import card
 from denoise_gan_tpu_torch.utils.device import require_cuda
 
 HEIGHT, WIDTH = 1080, 1920
@@ -140,6 +167,11 @@ SRGAN_BODY_GAIN = 0.1
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
+# phase 3d: K6 bf16 checked step by step for BF16_STEPS steps (then the
+# chain overflows on its way to inf and NaN), the random states for
+# RANDOM_STEPS
+BF16_STEPS = 16
+RANDOM_STEPS = 100
 
 
 @dataclass(frozen=True)
@@ -190,7 +222,9 @@ FAMILIES = [
 ]
 
 
-COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts]
+COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts,
+                                         fma_peak.launch_counts,
+                                         int8_chain.launch_counts]
 
 
 def fired() -> dict[str, int]:
@@ -376,18 +410,17 @@ def check_canvas(what: str, a: torch.Tensor, b: torch.Tensor,
     return dmax
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps runs, by CUDA events, after one warm-up."""
-    fn()
+def timed_once(fn: Callable[[], torch.Tensor]) -> tuple[torch.Tensor, float]:
+    """(fn(), its ms) by CUDA events around one run, no warm-up: for plain
+    versions that run for seconds."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return out, start.elapsed_time(stop)
 
 
 def engine_fps(run, frames, n: int) -> float:
@@ -489,6 +522,119 @@ def k3_vs_plain(model, dev):
     return x, blocks, max_err, exact
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float]:
+    """(whether a and b are equal, NaN where the other is NaN, and max
+    |a - b| over the elements that are finite in both)."""
+    nan = torch.isnan(a)
+    same = torch.equal(nan, torch.isnan(b)) and \
+        torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    d = (a[fin] - b[fin]).abs()
+    return same, float(d.max()) if d.numel() else 0.0
+
+
+def k9_vs_plain(dev) -> dict[str, float]:
+    """Phase 3d, K9: the FMA and roll + FMA kernels bit-identical to their
+    plain versions at the JAX probe's shape and iterations.  Returns max
+    |error| by kernel."""
+    x0 = fma_peak.seeded_input(dev)
+    errs = {}
+    for fn, plain, iters in (
+            (fma_peak.fma_chain, fma_peak.fma_chain_reference, fma_peak.ITERS),
+            (fma_peak.roll_fma_chain, fma_peak.roll_fma_chain_reference,
+             fma_peak.ITERS // 2)):
+        got = fn(x0, iters)
+        torch.cuda.synchronize()
+        want = plain(x0, iters)
+        same, d = same_bits(got, want)
+        print(f"  {fn.__name__} {tuple(x0.shape)} x {iters}: bit-identical "
+              f"{'held' if same else 'missed'} (max |d| {d:.3e}, max |plain| "
+              f"{float(want.abs().max()):.3e})")
+        if not same or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{fn.__name__} disagrees with its plain "
+                                 "version")
+        errs[fn.__name__] = d
+    return errs
+
+
+def bf16_steps(y, w, steps: int) -> tuple[float, float]:
+    """K6 bf16 from (y, w), step by step: each kernel step from the
+    kernel's previous state against the plain version's step from the same
+    state, within int8_chain.bf16_step_bound, rows >= 128 kept; then one
+    launch of all the steps equal to them.  Returns (max |d|, the largest
+    ratio of a difference to its bound)."""
+    got, max_d, ratio = y, 0.0, 0.0
+    for _ in range(steps):
+        prev = got
+        got = int8_chain.dot_chain_steps(prev, w, 1)
+        want = int8_chain.dot_chain_steps_reference(prev, w, 1)
+        torch.cuda.synchronize()
+        d = (got.double() - want.double()).abs()
+        bound = int8_chain.bf16_step_bound(prev, w, want).clamp_min(1e-300)
+        max_d = max(max_d, float(d.max()))
+        ratio = max(ratio, float((d[:int8_chain.NOUT] / bound).max()))
+        if not bool(torch.isfinite(got).all()) or ratio > 1 or \
+                not torch.equal(got[int8_chain.NOUT:], y[int8_chain.NOUT:]):
+            raise AssertionError(f"K6 bf16 step disagrees with its plain "
+                                 f"version (ratio to bound {ratio:.3f})")
+    if not torch.equal(int8_chain.dot_chain_steps(y, w, steps), got):
+        raise AssertionError(f"K6 bf16: one launch of {steps} steps differs "
+                             "from its steps")
+    return max_d, ratio
+
+
+def k6_vs_plain(dev) -> dict[str, float]:
+    """Phase 3d, K6: at each K, from the probe's initial state at the JAX
+    shape (K, 3840): int8 after ITERS steps bit-identical to the float64
+    plain version; bf16 for BF16_STEPS steps by bf16_steps, and the two
+    chains' divergence after them (printed).  From random states: int8
+    after RANDOM_STEPS steps bit-identical, bf16 by bf16_steps.  Returns max
+    |error| by kernel line name."""
+    errs = {}
+    steps = int8_chain.ITERS
+    for k in int8_chain.KS:
+        got = int8_chain.dot_chain(k, steps, torch.int8, device=dev)
+        torch.cuda.synchronize()
+        want = int8_chain.dot_chain_reference(k, steps, torch.int8,
+                                              device=dev)
+        y, w = int8_chain.random_state(k, torch.int8, device=dev,
+                                        seed=SEED + k)
+        r_got = int8_chain.dot_chain_steps(y, w, RANDOM_STEPS)
+        torch.cuda.synchronize()
+        r_want = int8_chain.dot_chain_steps_reference(y, w, RANDOM_STEPS)
+        top = r_got[:int8_chain.NOUT]
+        print(f"  dot_chain int8 K={k} (K, {int8_chain.M}): {steps} steps "
+              f"bit-identical {'held' if torch.equal(got, want) else 'missed'}"
+              f" (rows 0..127: {int(got[:int8_chain.NOUT].unique().numel())} "
+              f"distinct values); random state, {RANDOM_STEPS} steps: "
+              f"{'held' if torch.equal(r_got, r_want) else 'missed'} "
+              f"({int(top.unique().numel())} distinct values, "
+              f"{float((top.abs() == 127).float().mean()):.3f} at +-127)")
+        if not (torch.equal(got, want) and torch.equal(r_got, r_want)):
+            raise AssertionError(f"K6 int8 K={k} differs from its plain "
+                                 "version")
+        errs[f"dot_chain:int8:K={k}"] = 0.0
+        y, w = int8_chain.initial_state(k, torch.bfloat16, device=dev)
+        d, ratio = bf16_steps(y, w, BF16_STEPS)
+        free = int8_chain.dot_chain(k, BF16_STEPS, torch.bfloat16, device=dev)
+        ref = int8_chain.dot_chain_reference(k, BF16_STEPS, torch.bfloat16,
+                                             device=dev)
+        torch.cuda.synchronize()
+        scale = float(ref.double().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        dfree = float((free.double() - ref.double()).abs().max())
+        r_d, r_ratio = bf16_steps(
+            *int8_chain.random_state(k, torch.bfloat16, device=dev,
+                                     seed=SEED + k), BF16_STEPS)
+        print(f"  dot_chain bf16 K={k}: steps 1-{BF16_STEPS} within "
+              f"bf16_step_bound (max |d| {d:.3e}, {ratio:.3f} of the bound; "
+              f"random state {r_ratio:.3f}); the two chains after "
+              f"{BF16_STEPS} steps (printed only): max |d| {dfree:.3e} = "
+              f"{dfree / ulp:.2f} bf16 ulps of max |plain| {scale:.3e}")
+        errs[f"dot_chain:bf16:K={k}"] = max(d, r_d)
+    return errs
+
+
 def k3_main_path(model, frames, exact: bool):
     """Phase 4c: the K3-body engine as a user builds it, on MAIN_FRAMES
     alternating frames, counts zeroed just before and read just after; then
@@ -546,14 +692,15 @@ def k3_times(model, frames, x, blocks, k_eng, p_eng):
     """Phase 5 for K3: (kernel ms, plain ms) per frame of six blocks, the
     six plain InvertedResidual modules on cuDNN, and both engines' fps."""
     reps = 10
-    k_ms = cuda_ms(lambda: [mbconv.fused_mbconv(x, w) for w in blocks], reps)
-    p_ms = cuda_ms(lambda: [mbconv.fused_mbconv_reference(x, w)
+    k_ms = card.cuda_ms(lambda: [mbconv.fused_mbconv(x, w) for w in blocks],
+                        reps)
+    p_ms = card.cuda_ms(lambda: [mbconv.fused_mbconv_reference(x, w)
                             for w in blocks], 1)
     body = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH)[0]
     xc = x.permute(0, 3, 1, 2)
     mods = [getattr(body, f"InvertedResidual_{i}") for i in range(len(blocks))]
     with torch.inference_mode():
-        lib_ms = cuda_ms(lambda: [m(xc) for m in mods], reps)
+        lib_ms = card.cuda_ms(lambda: [m(xc) for m in mods], reps)
     b_ms, b_by = k3_bound(x, blocks)
     print(f"  K3, {len(blocks)} launches at x {tuple(x.shape)}: kernel "
           f"{k_ms:.2f} ms/frame, plain version {p_ms:.2f}, plain "
@@ -859,9 +1006,9 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
           f"{fps_q:.2f} frames/s")
     tiles = ke._tiles(frames[1], ny, nx, cr)
     with torch.inference_mode():
-        body_ms = cuda_ms(lambda: body(tiles), 5)
+        body_ms = card.cuda_ms(lambda: body(tiles), 5)
     h = inputs["bf16"]
-    q_ms = cuda_ms(lambda: tail_ops.quantize_h(h, tails["qh8"]), 10)
+    q_ms = card.cuda_ms(lambda: tail_ops.quantize_h(h, tails["qh8"]), 10)
     print(f"  {fam.name} body (bf16, {ny * nx} tiles): {body_ms:.2f} "
           f"ms/frame; quantize_h (plain PyTorch): {q_ms:.2f} ms/frame")
     ms = {}
@@ -870,9 +1017,9 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
         for kernel, twin in ((fam.kernel, fam.twin),
                              (fam.canvas, fam.canvas_twin)):
             key = fam.key(kernel, mode)
-            k_ms = cuda_ms(lambda: kernel(*args), 10)
+            k_ms = card.cuda_ms(lambda: kernel(*args), 10)
             # the twins are slow; time those of the kernels line's entries
-            t_ms = cuda_ms(lambda: twin(*args), twin_reps) \
+            t_ms = card.cuda_ms(lambda: twin(*args), twin_reps) \
                 if kernel is fam.kernel or mode == "w8a8" else None
             ms[key] = (k_ms, t_ms)
             print(f"  {fam.name} tail {key}: kernel {k_ms:.2f} ms/frame"
@@ -883,20 +1030,109 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
     cudnn_tail = fam.tail_cls(dtype=torch.bfloat16).to(h.device).eval()
     cudnn_tail.load_state_dict(model.tail.state_dict())
     with torch.inference_mode():
-        cudnn_ms = cuda_ms(lambda: cudnn_tail(h), 3)
+        cudnn_ms = card.cuda_ms(lambda: cudnn_tail(h), 3)
     print(f"  {fam.name} tail, bf16 {fam.tail_cls.__name__} module on cuDNN "
           f"(no crop, no u8): {cudnn_ms:.2f} ms/frame")
     return ms
 
 
+def probe_times(dev, smi: str, errs: dict[str, float]) -> list[dict]:
+    """Phase 5 for the probes: K9 at the JAX shape with the probe's and
+    with LONG_ITERS iterations, and the roll chain on WIDE_ROWS rows (ms
+    per launch over 32 chained launches, as the JAX probe's
+    time_chained), its plain versions, and the FP32 peak from
+    clocks.max.sm; cuBLAS at the JAX probe's matmul shapes; K6 per K
+    and type (ITERS steps), its plain version, one step's product by
+    torch.matmul / torch._int_mm, and the chain through them
+    (library_ms).  Returns the kernels line's entries: K9 at LONG_ITERS,
+    where the kernel's time is measured rather than the wrapper's, and
+    K6; all with launches 0: no frame path runs the probes."""
+    peak, sms, mhz = card.fp32_peak(dev)
+    print(f"  FP32 peak {peak / 1e12:.2f} TF/s = {sms} SMs x "
+          f"{card.FP32_LANES} lanes x 2 x {mhz:.0f} MHz (clocks.max.sm) "
+          f"[{smi}]")
+    x0 = fma_peak.seeded_input(dev)
+    plain = {"fma_chain": fma_peak.fma_chain_reference,
+             "roll_fma_chain": fma_peak.roll_fma_chain_reference}
+    entries = []
+    for r in fma_peak.measure(dev):
+        n_bytes = 2 * 4 * r["shape"][0] * r["shape"][1]
+        b_ms, b_by = bound(n_bytes, [(r["flops"], peak)])
+        print(f"  {r['name']} {r['shape']} x {r['iters']}: "
+              f"{r['ms']:.4f} ms, {r['tflops']:.2f} TF/s "
+              f"({100 * r['tflops'] * 1e12 / peak:.1f}% of the FP32 peak), "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        fn = plain[r["name"]]
+        if not r["long"]:
+            p_ms = card.time_chained(
+                lambda x, fn=fn, n=r["iters"]: fn(x, n), x0, fma_peak.CHAINED)
+            print(f"    plain version: {p_ms:.4f} ms (chained)")
+        elif r["shape"] == fma_peak.SHAPE:
+            kernel = getattr(fma_peak, r["name"])
+            got = kernel(x0, r["iters"])
+            want, p_ms = timed_once(lambda: fn(x0, r["iters"]))
+            same, d = same_bits(got, want)
+            print(f"    plain version: {p_ms:.2f} ms (one run); bit-identical "
+                  f"{'held' if same else 'missed'}, "
+                  f"{float(torch.isnan(want).float().mean()):.3f} NaN")
+            if not same:
+                raise AssertionError(f"{r['name']} x {r['iters']} disagrees "
+                                     "with its plain version")
+            entries.append({
+                "name": r["name"], "route": "cuda",
+                "source": "denoise_gan_tpu_torch/csrc/probe_fma.cu",
+                "replaces": "tools/exp_vpu_peak.py:" + (
+                    "39" if r["name"] == "fma_chain" else "49"),
+                "launches": 0, "max_abs_err": max(errs[r["name"]], d),
+                "ms": r["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None})
+    for r in fma_peak.matmul_yardsticks(dev):
+        print(f"  torch.matmul form {r['form']} bf16 {r['m']}x{r['k']}x"
+              f"{r['n']} (chained): {r['ms']:.4f} ms, {r['tflops']:.1f} TF/s")
+    steps = int8_chain.ITERS
+    by_k: dict[int, dict[str, float]] = {}
+    for r in int8_chain.measure(dev):
+        k, dtype = r["k"], r["dtype"]
+        name = int8_chain.NAMES[dtype]
+        y, w = int8_chain.initial_state(k, dtype, device=dev)
+        p_ms = card.cuda_ms(
+            lambda: int8_chain.dot_chain_steps_reference(y, w, steps), 1)
+        n_bytes = (2 * y.numel() + w.numel()) * y.element_size()
+        b_ms, b_by = bound(n_bytes, [(int8_chain.ops(k, steps),
+                                      BF16_FLOP_S if name == "bf16"
+                                      else INT8_OP_S)])
+        lib, chain = r["library_step_ms"], r["library_chain_ms"]
+        by_k.setdefault(k, {})[name] = r["ms"]
+        print(f"  dot_chain {name} K={k} x {steps} steps: {r['ms']:.3f} ms, "
+              f"{r['tops']:.1f} T/s, bound {b_ms:.3f} ms ({b_by}); plain "
+              f"version {p_ms:.2f} ms; by "
+              + ("torch.matmul" if name == "bf16" else "torch._int_mm")
+              + (f": one step's product {lib:.4f} ms, the chain {chain:.2f} ms"
+                 if lib is not None else ": refused"))
+        if name == "int8" and lib is not None:
+            same = torch.equal(int8_chain.library_chain(y, w, steps),
+                               int8_chain.dot_chain_steps(y, w, steps))
+            print(f"    the library chain bit-identical to the kernel's: "
+                  f"{'held' if same else 'missed'} (printed only)")
+        if len(by_k[k]) == 2:
+            ratio = by_k[k]["bf16"] / by_k[k]["int8"]
+            print(f"    i8/bf16 at K={k}: {ratio:.2f}x")
+        entries.append({
+            "name": f"dot_chain:{name}:K={k}", "route": "cuda",
+            "source": "denoise_gan_tpu_torch/csrc/probe_mma.cu",
+            "replaces": "tools/exp_int8_mosaic.py:" + (
+                "33" if name == "bf16" else "50"),
+            "launches": 0, "max_abs_err": errs[f"dot_chain:{name}:K={k}"],
+            "ms": r["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": chain})
+    return entries
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card.smi("name,power.limit", dev.index or 0)
     kind = torch.cuda.get_device_name(0)
     print(smi)
     print(f"phase 1 device: {kind}, torch {torch.__version__}, cuda "
@@ -918,6 +1154,10 @@ def main() -> None:
     checked = {f.name: kernel_vs_twin(label, f, models[f.name], dev)
                for label, f in zip(("3", "3b"), FAMILIES)}
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
+    # ---- phase 3d: the probes' kernels vs their plain versions
+    print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
+          f"(K, {int8_chain.M})):")
+    probe_errs = {**k9_vs_plain(dev), **k6_vs_plain(dev)}
 
     # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
@@ -960,6 +1200,7 @@ def main() -> None:
                         body, k_eng, t_eng))
 
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
+    probes = probe_times(dev, smi, probe_errs)
 
     kernels = []
     for fam in FAMILIES:
@@ -984,7 +1225,7 @@ def main() -> None:
         "launches": launches3["fused_mbconv"], "max_abs_err": err3,
         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3],
         "bound_by": k3[4], "library_ms": None})
-    record = {"kernels": kernels}
+    record = {"kernels": kernels + probes}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,13 @@
+"""Hopper counterparts of the JAX package's TPU hardware probes
+(tools/exp_*.py).
+
+Each module ports one probe: its kernels are hand-written CUDA in ``csrc/``
+with plain PyTorch versions beside them, and its ``main`` times them on the
+card at the JAX probe's shapes.  No frame path runs them.
+
+* ``fma_peak``: tools/exp_vpu_peak.py (K9), the CUDA cores' FFMA peak and
+  the cost of a warp-shuffle roll + FMA, and cuBLAS at the probe's matmul
+  shapes.
+* ``int8_chain``: tools/exp_int8_mosaic.py (K6), chained bf16 vs int8
+  tensor-core dots at the tails' contraction depths.
+"""

@@ -1,0 +1,60 @@
+"""What is read from the card: its nvidia-smi name and power limit, its FP32
+peak, and CUDA-event timings (chip_smoke.py and the probes)."""
+
+from __future__ import annotations
+
+import subprocess
+from typing import Callable
+
+import torch
+
+# FP32 lanes per SM at compute capability 9.0 (CUDA C++ Programming Guide)
+FP32_LANES = 128
+
+
+def smi(query: str, index: int = 0) -> str:
+    """``nvidia-smi --query-gpu=<query> --format=csv,noheader`` of card
+    `index`."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), f"--query-gpu={query}",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def fp32_peak(device: torch.device) -> tuple[float, int, float]:
+    """(FLOP/s, SMs, clocks.max.sm in MHz): SMs x 128 lanes x 2 flops x the
+    card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = float(smi("clocks.max.sm", device.index or 0).split()[0])
+    return sms * FP32_LANES * 2 * mhz * 1e6, sms, mhz
+
+
+def cuda_ms(fn: Callable[[], object], reps: int) -> float:
+    """Mean ms of fn() over reps calls, by CUDA events, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_chained(fn: Callable[[torch.Tensor], torch.Tensor],
+                 x0: torch.Tensor, n: int = 32) -> float:
+    """Mean ms per call of n chained calls x = fn(x), each taking the last
+    one's output, by CUDA events after one warm-up call (the JAX probes'
+    ``time_chained``, tools/exp_vpu_peak.py:24)."""
+    x = fn(x0)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        x = fn(x)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n

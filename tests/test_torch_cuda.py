@@ -137,3 +137,69 @@ def test_mbconv_wrapper_refuses_on_card(port, bad):
 
 def test_build_generator_defaults_to_card(port):
     assert port("default_generator_device") == "cuda"
+
+
+# The probes (denoise_gan_tpu_torch/probes/) at sizes that chip_smoke.py's
+# JAX shapes do not reach: a few rows, element and column counts that are
+# not a multiple of a block or of K6's 32-column slab, one column, and K6
+# in bf16 at K = 1152, where w streams from L2 every step.  K9: bit-identical
+# (fmaf and the plain version's fma_f32 each round a multiply-add once).  K6: int8
+# bit-identical after `iters` chained steps; bf16 each step, from the
+# kernel's previous state, within int8_chain.bf16_step_bound (one bf16
+# rounding after f32 sums in another order), and one launch of those steps
+# equal to the steps; rows >= 128 unchanged.  From the probe's initial
+# state (where int8 saturates at 127 within two steps) and from a random
+# one (both signs, rarely saturated).
+
+@pytest.mark.parametrize("iters", [0, 37, 256])
+@pytest.mark.parametrize("shape", [(3, 1000), (1, 7), (5, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_probe_fma_kernel_matches_plain(port, shape, iters):
+    r = port("cuda_probe_fma", shape, iters)
+    print(r)
+    assert r["shape"] == shape and r["launches"] == 1
+    assert r["equal"], r
+
+
+@pytest.mark.parametrize("iters", [1, 128])
+@pytest.mark.parametrize("rows,width", [(1, 1024), (3, 1024), (5, 1024),
+                                        (6, 1024)])
+def test_probe_roll_kernel_matches_plain(port, rows, width, iters):
+    r = port("cuda_probe_roll", rows, width, iters)
+    print(r)
+    assert r["shape"] == (rows, width) and r["launches"] == 1
+    assert r["equal"], r
+
+
+@pytest.mark.parametrize("width", [1000, 128, 256, 512, 2048])
+def test_probe_roll_kernel_refuses_width(port, width):
+    with pytest.raises(ValueError):
+        port("cuda_probe_roll_bad_width", width)
+
+
+@pytest.mark.parametrize("state", ["probe", "random"])
+@pytest.mark.parametrize("m", [1, 37, 100])
+@pytest.mark.parametrize("k", [128, 384, 1152])
+@pytest.mark.parametrize("dtype,iters", [("int8", 50), ("bf16", 4)])
+def test_probe_dot_chain_matches_plain(port, dtype, iters, k, m, state):
+    r = port("cuda_probe_dot_chain", k, m, iters, dtype, state)
+    print(r)
+    assert r["shape"] == (k, m) and r["rest_kept"]
+    assert r["launches"] == (1 if dtype == "int8" else iters + 1)
+    if dtype == "int8":
+        assert r["equal"], r
+    else:
+        assert r["bound_ratio"] <= 1 and r["one_launch"], r
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_shape", "short_k", "chunk"])
+def test_probe_dot_chain_refuses_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("probe_dot_chain_bad_input", bad, device="cuda")
+
+
+def test_probe_dot_chain_too_deep_fails_at_launch(port):
+    # bf16 K = 2560: the slab and the ring of w chunks exceed a block's
+    # shared memory, and the C entry point refuses the launch
+    with pytest.raises(RuntimeError):
+        port("probe_dot_chain_bad_input", "deep", device="cuda")

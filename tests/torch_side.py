@@ -28,6 +28,8 @@ from denoise_gan_tpu_torch.ops import image as timage
 from denoise_gan_tpu_torch.ops import mbconv as tmbconv
 from denoise_gan_tpu_torch.ops import tail as ttail
 from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
+from denoise_gan_tpu_torch.probes import fma_peak as tfma
+from denoise_gan_tpu_torch.probes import int8_chain as tdot
 from denoise_gan_tpu_torch.utils.device import require_cuda, resolve_device
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
@@ -676,3 +678,166 @@ def cuda_mbconv_bad_input(bad):
 def default_generator_device():
     """The device type of build_generator("fsrgan") with no device."""
     return build_generator("fsrgan").body.Conv_0.weight.device.type
+
+
+# ---------------------------------------------------------------------------
+# probes/fma_peak.py (K9) and probes/int8_chain.py (K6)
+
+PROBE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def probe_fma_reference(x, iters):
+    return _np(tfma.fma_chain_reference(torch.from_numpy(x), iters))
+
+
+def probe_roll_fma_reference(x, iters):
+    return _np(tfma.roll_fma_chain_reference(torch.from_numpy(x), iters))
+
+
+def probe_fma_f32(a, c, b):
+    """fma_peak.fma_f32 on float32 arrays a, b and a float32 value c."""
+    return _np(tfma.fma_f32(torch.from_numpy(a), float(c),
+                            torch.from_numpy(b)))
+
+
+def probe_initial_state(k, dtype):
+    """(y, w) of int8_chain.initial_state on the CPU, as numpy."""
+    return tuple(_np(t) for t in tdot.initial_state(
+        k, PROBE_DTYPES[dtype], device="cpu"))
+
+
+def probe_dot_chain(k, iters, dtype):
+    """int8_chain.dot_chain on the CPU (its wrapper runs the plain version
+    there): the final y as numpy (bf16 as f32)."""
+    return _np(tdot.dot_chain(k, iters, PROBE_DTYPES[dtype], device="cpu"))
+
+
+def probe_wrappers_on_cpu():
+    """Each probe wrapper on CPU tensors against its plain version: whether
+    they are equal, and the kernels' launch counts it added."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 256), generator=gen) * 1e-3
+    before = {**tfma.launch_counts, **tdot.launch_counts}
+    y, w = tdot.initial_state(128, torch.int8, m=40, device="cpu")
+    equal = {
+        "fma_chain": torch.equal(tfma.fma_chain(x, 20),
+                                 tfma.fma_chain_reference(x, 20)),
+        "roll_fma_chain": torch.equal(tfma.roll_fma_chain(x, 10),
+                                      tfma.roll_fma_chain_reference(x, 10)),
+        "dot_chain_steps": torch.equal(
+            tdot.dot_chain_steps(y, w, 3),
+            tdot.dot_chain_steps_reference(y, w, 3))}
+    after = {**tfma.launch_counts, **tdot.launch_counts}
+    return equal, {k: after[k] - before[k] for k in after}
+
+
+def probe_entry_points_without_gpu():
+    """The probes' card entry points where torch.cuda.is_available() is
+    False: the exception type each raised, or None."""
+    calls = {"fma_peak.main": tfma.main, "int8_chain.main": tdot.main,
+             "fma_peak.measure": tfma.measure,
+             "dot_chain": lambda: tdot.dot_chain(128, 1, torch.int8)}
+    raised = {}
+    with _no_cuda():
+        for name, fn in calls.items():
+            try:
+                fn()
+                raised[name] = None
+            except Exception as e:  # noqa: BLE001 - reported to the test
+                raised[name] = type(e).__name__
+    return raised
+
+
+def probe_dot_chain_bad_input(bad, device="cpu"):
+    """dot_chain_steps on input it does not take: float32, w of the wrong
+    shape, K < 128, or (on the card) K not a multiple of the kernel's
+    128-byte chunk, or a bf16 K whose slab and ring of w chunks exceed a
+    block's shared memory; raises."""
+    y, w = tdot.initial_state(2560 if bad == "deep" else 256,
+                              torch.bfloat16 if bad == "deep" else torch.int8,
+                              m=40, device=device)
+    if bad == "dtype":
+        y, w = y.float(), w.float()
+    elif bad == "w_shape":
+        w = w[:, :64]
+    elif bad == "short_k":
+        y, w = y[:96], w[:96]
+    elif bad == "chunk":
+        y, w = y[:192].contiguous(), w[:192].contiguous()
+    tdot.dot_chain_steps(y, w, 1)
+
+
+def cuda_probe_fma(shape, iters):
+    """K9's FMA kernel and its plain version on one seeded x on the card:
+    the launch-count increment, whether they are equal, max |difference|
+    and max |plain|."""
+    x = (torch.randn(shape, generator=torch.Generator().manual_seed(
+        iters)) * 1e-3).to("cuda")
+    before = tfma.launch_counts["fma_chain"]
+    got = tfma.fma_chain(x, iters)
+    torch.cuda.synchronize()
+    launches = tfma.launch_counts["fma_chain"] - before
+    want = tfma.fma_chain_reference(x, iters)
+    return dict(shape=tuple(got.shape), launches=launches,
+                equal=torch.equal(got, want),
+                max_diff=float((got - want).abs().max()),
+                max_abs=float(want.abs().max()))
+
+
+def cuda_probe_roll(rows, width, iters):
+    """K9's roll + FMA kernel and its plain version on one seeded x on the
+    card, as cuda_probe_fma."""
+    x = (torch.randn((rows, width), generator=torch.Generator().manual_seed(
+        rows * width)) * 1e-3).to("cuda")
+    before = tfma.launch_counts["roll_fma_chain"]
+    got = tfma.roll_fma_chain(x, iters)
+    torch.cuda.synchronize()
+    launches = tfma.launch_counts["roll_fma_chain"] - before
+    want = tfma.roll_fma_chain_reference(x, iters)
+    return dict(shape=tuple(got.shape), launches=launches,
+                equal=torch.equal(got, want),
+                max_diff=float((got - want).abs().max()),
+                max_abs=float(want.abs().max()))
+
+
+def cuda_probe_roll_bad_width(width):
+    """The roll kernel's wrapper on a CUDA x of a width it does not take;
+    raises."""
+    tfma.roll_fma_chain(torch.zeros((2, width), device="cuda"), 1)
+
+
+def cuda_probe_dot_chain(k, m, iters, dtype, state="probe"):
+    """K6's kernel and its plain version on the card from the probe's
+    initial state (or int8_chain.random_state) at (k, m): int8 after `iters`
+    chained steps; bf16 step by step from the kernel's own previous state,
+    each step held to int8_chain.bf16_step_bound, and the kernel's
+    `iters`-step launch against its steps.  A dict of the launch-count
+    increment, the max |difference|, whether they are equal, the largest
+    ratio of a difference to its bound (bf16), whether the one launch
+    equals the steps (bf16), and whether rows >= 128 kept their values."""
+    dt = PROBE_DTYPES[dtype]
+    y, w = (tdot.initial_state(k, dt, m=m, device="cuda") if state == "probe"
+            else tdot.random_state(k, dt, m=m, device="cuda"))
+    key = f"dot_chain_steps:{dtype}"
+    before = tdot.launch_counts[key]
+    ratio, one_launch = 0.0, True
+    if dt == torch.int8:
+        got = tdot.dot_chain_steps(y, w, iters)
+        want = tdot.dot_chain_steps_reference(y, w, iters)
+    else:
+        got = y
+        for _ in range(iters):
+            prev = got
+            got = tdot.dot_chain_steps(prev, w, 1)
+            want = tdot.dot_chain_steps_reference(prev, w, 1)
+            d = (got[:128].double() - want[:128].double()).abs()
+            bound = tdot.bf16_step_bound(prev, w, want).clamp_min(1e-300)
+            ratio = max(ratio, float((d / bound).max()))
+        one_launch = torch.equal(tdot.dot_chain_steps(y, w, iters), got)
+    torch.cuda.synchronize()
+    d = (got.double() - want.double()).abs()
+    return dict(launches=tdot.launch_counts[key] - before,
+                shape=tuple(got.shape), max_diff=float(d.max()),
+                equal=torch.equal(got, want), bound_ratio=ratio,
+                one_launch=one_launch,
+                rest_kept=torch.equal(got[128:], y[128:]))
