@@ -35,7 +35,16 @@ Phases, each printed on its own line:
    kernel's previous state within int8_chain.bf16_step_bound (one bf16
    rounding after f32 sums in another order), rows >= 128 unchanged, and
    one 16-step launch equal to the 16 single steps; the same from a random
-   state.
+   state.  K8 (csrc/probe_relayout.cu): the product kernel's LDSM (.trans
+   among them) and HMMA counts by cuobjdump (printed); matmul_form in both
+   operand forms at the JAX shapes (2048, 384, 128), (2048, 1152, 128),
+   (1024, 1152, 48) with 64 reps, every element of y within
+   relayout.product_bound of the float64 plain version (K * 2**-24 *
+   sum |x w|: f32 sums in another order) and acc within
+   relayout.acc_bound; the transpose chain at (1536, 128) x 8 iterations
+   bit-identical.  K10 (csrc/probe_u8.cu): the u8 phase store at (1024,
+   48) and at a 4K frame's (518400, 48), drawn on the card, bit-identical
+   (tanhf is torch's CUDA tanh; every step rounded apart on both sides).
 4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine on
    two alternating seeded frames, once per main path: w8a8 (calibrated on
@@ -114,7 +123,18 @@ Phases, each printed on its own line:
    product by torch.matmul / torch._int_mm (printed) and the whole chain
    through those calls (int8_chain.library_chain: library_ms).  Their
    bounds: K9's operations over the FP32 peak, K6's over the bf16 or int8
-   tensor-core peak.
+   tensor-core peak.  K8 and K10 kernels: ms per launch queued behind a
+   device sleep (card.queued_ms: the wrapper's host time is not counted).
+   K8: matmul_form per form and shape at the probe's 64 reps (the kernels
+   line: ms, bound (operations over the bf16 peak), the plain version and
+   the same reps through torch.matmul calls (library_ms), all at 64 reps)
+   and at LONG_REPS (printed: no plain version runs at the long counts),
+   T/s, and sublane / canonical at both; the transpose chain at 8
+   iterations (the kernels line, with its bound (bytes), the plain
+   version and the chain through .t().contiguous() and mul, all at 8) and
+   at LONG_ITERS (printed), and its shared-memory floor.  K10 at (1024,
+   48) and at the 4K frame (the kernels line; no single PyTorch call
+   computes it), its bound (bytes) and its plain version.
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -139,7 +159,8 @@ from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
-from denoise_gan_tpu_torch.probes import fma_peak, int8_chain
+from denoise_gan_tpu_torch.probes import (fma_peak, int8_chain, relayout,
+                                          u8_store)
 from denoise_gan_tpu_torch.utils import card
 from denoise_gan_tpu_torch.utils.device import require_cuda
 
@@ -224,7 +245,9 @@ FAMILIES = [
 
 COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts,
                                          fma_peak.launch_counts,
-                                         int8_chain.launch_counts]
+                                         int8_chain.launch_counts,
+                                         relayout.launch_counts,
+                                         u8_store.launch_counts]
 
 
 def fired() -> dict[str, int]:
@@ -633,6 +656,80 @@ def k6_vs_plain(dev) -> dict[str, float]:
               f"{dfree / ulp:.2f} bf16 ulps of max |plain| {scale:.3e}")
         errs[f"dot_chain:bf16:K={k}"] = max(d, r_d)
     return errs
+
+
+def k8_bound(m: int, k: int, n: int, reps: int) -> tuple[float, str]:
+    """K8's product: x and w read once (bf16), y (f32) and acc written
+    once; 2 * M * K * N * reps operations at the bf16 tensor-core peak."""
+    n_bytes = 2 * (m * k + k * n) + 4 * (m * n + 1)
+    return bound(n_bytes, [(relayout.ops(m, k, n, reps), BF16_FLOP_S)])
+
+
+def k8_vs_plain(dev) -> dict[str, float]:
+    """Phase 3d, K8: the product kernel's instruction counts by cuobjdump
+    (printed), then each form at each JAX shape with the probe's 64 reps
+    within relayout.product_bound of its plain version per element and
+    acc within relayout.acc_bound; the transpose chain at (1536, 128) x 8
+    bit-identical.  Returns max |error| by kernels-line name."""
+    for form, c in relayout.sass_counts().items():
+        print(f"  matmul_form_kernel<{form}> SASS: {c['LDSM']} LDSM "
+              f"({c['LDSM.16.MT88']} of them .trans), {c['HMMA']} HMMA")
+    errs = {}
+    for m, k, n in relayout.SHAPES:
+        for form in relayout.FORMS:
+            x, w = relayout.seeded_operands(m, k, n, form, dev)
+            acc, y = relayout.matmul_form(x, w, form)
+            torch.cuda.synchronize()
+            want_acc, want = relayout.matmul_form_reference(x, w, form)
+            yb = relayout.product_bound(x, w, form)
+            d = (y.double() - want.double()).abs()
+            ratio = float((d / yb.clamp_min(1e-300)).max())
+            da = abs(float(acc) - float(want_acc))
+            ab = relayout.acc_bound(yb, want_acc, relayout.REPS)
+            b_ms, b_by = k8_bound(m, k, n, relayout.REPS)
+            print(f"  matmul_form {form} {m}x{k}x{n} x {relayout.REPS}: max "
+                  f"|dy| {float(d.max()):.3e} = {ratio:.4f} of the f32-order "
+                  f"bound (max {float(yb.max()):.3e}); acc {float(acc)!r} vs "
+                  f"{float(want_acc)!r}, |d| {da:.3e} of {ab:.3e}; bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by})")
+            if not (bool(torch.isfinite(y).all()) and ratio <= 1 and
+                    da <= ab):
+                raise AssertionError(f"matmul_form {form} {m}x{k}x{n} "
+                                     "disagrees with its plain version")
+            errs[f"matmul_form:{form}:{m}x{k}x{n}"] = max(float(d.max()), da)
+    x = relayout.seeded_block(dev)
+    got = relayout.transpose_chain(x)
+    torch.cuda.synchronize()
+    same, d = same_bits(got, relayout.transpose_chain_reference(x))
+    print(f"  transpose_chain {tuple(x.shape)} x {relayout.TK_ITERS}: "
+          f"bit-identical {'held' if same else 'missed'} (max |d| {d:.3e})")
+    if not same:
+        raise AssertionError("transpose_chain disagrees with its plain "
+                             "version")
+    errs["transpose_chain"] = d
+    return errs
+
+
+def k10_vs_plain(dev) -> dict[str, float]:
+    """Phase 3d, K10: the u8 store bit-identical to its plain version at
+    the JAX probe's (1024, 48) and at a 4K frame's (518400, 48).  Returns
+    max |error| (u8 levels) by kernels-line name."""
+    d_max = 0
+    for res in (u8_store.seeded_input(dev), u8_store.frame_input(dev, SEED)):
+        got = u8_store.u8_phase_store(res)
+        torch.cuda.synchronize()
+        want = u8_store.u8_phase_store_reference(res)
+        d = (got.int() - want.int()).abs()
+        same = torch.equal(got, want)
+        print(f"  u8_phase_store {tuple(res.shape)} -> {tuple(got.shape)}: "
+              f"bit-identical {'held' if same else 'missed'} (max "
+              f"{int(d.max())}, {float((d > 0).float().mean()):.2e} of the "
+              f"bytes differ; {int(got.unique().numel())} distinct values)")
+        if not same:
+            raise AssertionError("u8_phase_store disagrees with its plain "
+                                 "version")
+        d_max = max(d_max, int(d.max()))
+    return {"u8_phase_store": float(d_max)}
 
 
 def k3_main_path(model, frames, exact: bool):
@@ -1129,6 +1226,97 @@ def probe_times(dev, smi: str, errs: dict[str, float]) -> list[dict]:
     return entries
 
 
+def k8_k10_times(dev, errs: dict[str, float]) -> list[dict]:
+    """Phase 5 for K8 and K10: K8's product per form and JAX shape with the
+    probe's 64 reps (the kernels line: ms, bound, the plain version and 64
+    torch.matmul calls (library_ms), all at 64 reps) and with LONG_REPS
+    (printed: ms, T/s, bound); the transpose chain with 8 iterations (the
+    kernels line, as the product) and LONG_ITERS (printed), each with its
+    bound and shared-memory floor (16 bytes an element an iteration at
+    128 bytes/clock/SM); K10 at (1024, 48) and at the 4K frame's rows (the
+    kernels line), its bound and its plain version.  Kernel and library
+    times are queued behind a device sleep (card.queued_ms).  Returns the
+    kernels line's entries, all with launches 0: no frame path runs the
+    probes."""
+    peak, sms, mhz = card.fp32_peak(dev)
+    entries, long_ms = [], {}
+    for r in relayout.measure(dev):
+        long, reps = r["long"], r["reps"]
+        if r["name"] == "transpose_chain":
+            x = relayout.seeded_block(dev)
+            n_el = x.numel()
+            b_ms, b_by = bound(8 * n_el, [(n_el * reps, peak)])
+            smem_ms = 16 * n_el * reps / (128 * sms * mhz * 1e6) * 1e3
+            print(f"  transpose_chain {relayout.TK_SHAPE} x {reps} "
+                  f"iterations: {r['ms']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), shared-memory floor {smem_ms:.4f} ms")
+            if long:
+                continue
+            lib = card.queued_ms(
+                lambda: relayout.library_transpose_chain(x, reps), 5)
+            p_ms = card.cuda_ms(
+                lambda: relayout.transpose_chain_reference(x, reps), 5)
+            print(f"    x {reps}: plain version {p_ms:.4f} ms; by "
+                  f".t().contiguous() and mul {lib:.4f} ms")
+            entries.append({
+                "name": "transpose_chain", "route": "cuda",
+                "source": "denoise_gan_tpu_torch/csrc/probe_relayout.cu",
+                "replaces": "tools/exp_relayout.py:119", "launches": 0,
+                "max_abs_err": errs["transpose_chain"], "ms": r["ms"],
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib})
+            continue
+        (m, k, n), form = r["shape"], r["name"].split(":")[1]
+        name = f"{r['name']}:{m}x{k}x{n}"
+        b_ms, b_by = k8_bound(m, k, n, reps)
+        print(f"  {name} x {reps} reps: {r['ms']:.4f} ms, {r['tops']:.1f} "
+              f"T/s ({100 * r['tops'] * 1e12 / BF16_FLOP_S:.1f}% of the bf16 "
+              f"peak), bound {b_ms:.4f} ms ({b_by})")
+        if long:
+            long_ms[name] = r["ms"]
+            continue
+        x, w = relayout.seeded_operands(m, k, n, form, dev)
+        lib = card.queued_ms(
+            lambda: relayout.library_products(x, w, form, reps), 5)
+        p_ms = card.cuda_ms(
+            lambda: relayout.matmul_form_reference(x, w, form, reps), 3)
+        print(f"    x {reps}: plain version (float64) {p_ms:.3f} ms; "
+              f"{reps} torch.matmul calls {lib:.4f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "denoise_gan_tpu_torch/csrc/probe_relayout.cu",
+            "replaces": "tools/exp_relayout.py:41", "launches": 0,
+            "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    ms = {e["name"]: e["ms"] for e in entries}
+    for m, k, n in relayout.SHAPES:
+        shape = f"{m}x{k}x{n}"
+        for reps, by in ((relayout.REPS, ms), (relayout.LONG_REPS, long_ms)):
+            ratio = by[f"matmul_form:sublane:{shape}"] \
+                / by[f"matmul_form:canonical:{shape}"]
+            print(f"    sublane / canonical at {shape} x {reps}: "
+                  f"{ratio:.3f}")
+    for r in u8_store.measure(dev):
+        rows = r["rows"]
+        res = u8_store.seeded_input(dev) if rows == u8_store.ROWS \
+            else u8_store.frame_input(dev, SEED)
+        b_ms, b_by = bound(u8_store.n_bytes(rows),
+                           [(8 * res.numel(), peak)])
+        p_ms = card.cuda_ms(lambda: u8_store.u8_phase_store_reference(res), 3)
+        print(f"  u8_phase_store ({rows}, {u8_store.COLS}): {r['ms']:.4f} ms, "
+              f"{r['gbs']:.0f} GB/s, bound {b_ms:.4f} ms ({b_by}); plain "
+              f"version {p_ms:.4f} ms")
+        if rows == u8_store.FRAME_4K_ROWS:
+            entries.append({
+                "name": "u8_phase_store", "route": "cuda",
+                "source": "denoise_gan_tpu_torch/csrc/probe_u8.cu",
+                "replaces": "tools/exp_u8_store.py:17", "launches": 0,
+                "max_abs_err": errs["u8_phase_store"], "ms": r["ms"],
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None})
+    return entries
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -1156,8 +1344,10 @@ def main() -> None:
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
-          f"(K, {int8_chain.M})):")
-    probe_errs = {**k9_vs_plain(dev), **k6_vs_plain(dev)}
+          f"(K, {int8_chain.M}), K8 and K10 at the JAX shapes, K10 also at "
+          "a 4K frame):")
+    probe_errs = {**k9_vs_plain(dev), **k6_vs_plain(dev), **k8_vs_plain(dev),
+                  **k10_vs_plain(dev)}
 
     # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
@@ -1200,7 +1390,8 @@ def main() -> None:
                         body, k_eng, t_eng))
 
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
-    probes = probe_times(dev, smi, probe_errs)
+    probes = probe_times(dev, smi, probe_errs) + k8_k10_times(dev,
+                                                               probe_errs)
 
     kernels = []
     for fam in FAMILIES:

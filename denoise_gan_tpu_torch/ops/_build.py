@@ -32,18 +32,29 @@ _TAIL_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_float] * 2
 _MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the probes (probes/): K9's FMA chain takes (x, out, n, iters, c1, c2,
 # stream) and its roll + FMA chain (x, out, rows, iters, c1, stream);
-# K6's dot chain (wt, y, k, m, iters, int8, stream)
+# K6's dot chain (wt, y, k, m, iters, int8, stream); K8's product
+# (x, w, y, parts, acc, m, k, n, sublane, reps, splits, stream) and
+# transpose chain (x, out, rows, cols, iters, c, stream); K10's u8 store
+# (res, out, bands, stream)
 _PROBE_FMA_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _PROBE_ROLL_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PROBE_DOT_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
+_PROBE_MM_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+_PROBE_TRANSPOSE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_PROBE_U8_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
 ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
                 "dgt_probe_roll_fma": _PROBE_ROLL_ARGS,
-                "dgt_probe_dot_chain": _PROBE_DOT_ARGS}
+                "dgt_probe_dot_chain": _PROBE_DOT_ARGS,
+                "dgt_probe_matmul_form": _PROBE_MM_ARGS,
+                "dgt_probe_transpose_chain": _PROBE_TRANSPOSE_ARGS,
+                "dgt_probe_u8_store": _PROBE_U8_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 

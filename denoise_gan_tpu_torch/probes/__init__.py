@@ -10,4 +10,9 @@ card at the JAX probe's shapes.  No frame path runs them.
   shapes.
 * ``int8_chain``: tools/exp_int8_mosaic.py (K6), chained bf16 vs int8
   tensor-core dots at the tails' contraction depths.
+* ``relayout``: tools/exp_relayout.py (K8), tensor-core products with a
+  K-major or an MN-major operand (``ldmatrix`` vs ``ldmatrix.trans``) at
+  the tails' shapes, and a chain of in-kernel transposes.
+* ``u8_store``: tools/exp_u8_store.py (K10), the tails' tanh -> u8
+  epilogue and its four-phase split alone, up to a 4K frame.
 """

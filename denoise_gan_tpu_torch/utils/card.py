@@ -10,6 +10,8 @@ import torch
 
 # FP32 lanes per SM at compute capability 9.0 (CUDA C++ Programming Guide)
 FP32_LANES = 128
+# queued_ms's device sleep: ~20 ms at the H100's ~2 GHz SM clock
+_QUEUE_SLEEP_CYCLES = 40_000_000
 
 
 def smi(query: str, index: int = 0) -> str:
@@ -35,6 +37,25 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn: Callable[[], object], reps: int) -> float:
+    """Mean ms of fn() over reps calls by CUDA events, after one warm-up,
+    with the calls queued behind a device-side sleep of _QUEUE_SLEEP_CYCLES
+    clocks: the host enqueues them while the device sleeps, so its time
+    between launches, which can exceed a short kernel's, is not counted
+    (as long as reps launches take the host less than the sleep)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(_QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()

@@ -203,3 +203,60 @@ def test_probe_dot_chain_too_deep_fails_at_launch(port):
     # shared memory, and the C entry point refuses the launch
     with pytest.raises(RuntimeError):
         port("probe_dot_chain_bad_input", "deep", device="cuda")
+
+
+# K8 and K10 (probes/relayout.py, probes/u8_store.py) at the JAX probes'
+# shapes and at sizes they do not reach: an M that is not a multiple of 16
+# (ragged rows of A or columns of B, by form), a few reps that do not
+# divide among the split CTAs, transposes of ragged tiles, and the u8
+# store at one band.  K8's product: every element within
+# relayout.product_bound (f32 sums in another order than the ideal
+# accumulator), acc within relayout.acc_bound; the transpose chain and the
+# u8 store bit-identical (one f32 multiply each step; tanhf and the plain
+# version's steps rounded apart).
+
+@pytest.mark.parametrize("reps", [1, 7, 64])
+@pytest.mark.parametrize("shape", [(2048, 384, 128), (2048, 1152, 128),
+                                   (1024, 1152, 48), (37, 384, 48),
+                                   (100, 1152, 72)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("form", ["canonical", "sublane"])
+def test_probe_matmul_form_matches_plain(port, form, shape, reps):
+    r = port("cuda_probe_matmul_form", *shape, form, reps)
+    print(r)
+    m, _, n = shape
+    assert r["shape"] == ((m, n) if form == "canonical" else (n, m))
+    assert r["launches"] == 1
+    assert r["y_ratio"] <= 1 and r["acc_ratio"] <= 1, r
+
+
+@pytest.mark.parametrize("iters", [0, 8, 33])
+@pytest.mark.parametrize("rows,cols", [(1536, 128), (45, 70), (1, 33)])
+def test_probe_transpose_chain_matches_plain(port, rows, cols, iters):
+    r = port("cuda_probe_transpose_chain", rows, cols, iters)
+    print(r)
+    assert r["shape"] == (rows, cols) and r["launches"] == 1
+    assert r["equal"], r
+
+
+@pytest.mark.parametrize("m", [128, 1024])
+def test_probe_u8_store_matches_plain(port, m):
+    r = port("cuda_probe_u8_store", m)
+    print(r)
+    assert r["shape"] == (m // 128, 4, 128, 12) and r["launches"] == 1
+    assert r["dtype"] == "torch.uint8" and r["equal"], r
+
+
+@pytest.mark.parametrize("bad", ["dtype", "form", "x_shape", "reps",
+                                 "u8_cols", "u8_rows", "u8_dtype"])
+def test_probe_relayout_and_u8_refuse_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("probe_relayout_bad_input", bad, device="cuda")
+
+
+@pytest.mark.parametrize("bad", ["k_step", "k_max"])
+def test_probe_matmul_form_launch_refuses_k(port, bad):
+    """K not a multiple of 64, or above the 1152 whose operands fit in a
+    block's shared memory: the entry point refuses the launch."""
+    with pytest.raises(RuntimeError):
+        port("probe_relayout_bad_input", bad, device="cuda")

@@ -30,6 +30,8 @@ from denoise_gan_tpu_torch.ops import tail as ttail
 from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
 from denoise_gan_tpu_torch.probes import fma_peak as tfma
 from denoise_gan_tpu_torch.probes import int8_chain as tdot
+from denoise_gan_tpu_torch.probes import relayout as trel
+from denoise_gan_tpu_torch.probes import u8_store as tu8
 from denoise_gan_tpu_torch.utils.device import require_cuda, resolve_device
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
@@ -841,3 +843,137 @@ def cuda_probe_dot_chain(k, m, iters, dtype, state="probe"):
                 equal=torch.equal(got, want), bound_ratio=ratio,
                 one_launch=one_launch,
                 rest_kept=torch.equal(got[128:], y[128:]))
+
+
+# ---------------------------------------------------------------------------
+# probes/relayout.py (K8) and probes/u8_store.py (K10)
+
+def probe_matmul_form(x, w, form, reps):
+    """relayout.matmul_form on the CPU (its wrapper runs the plain version
+    there) from f32 arrays of bf16 values: (acc, y) as a float and numpy."""
+    acc, y = trel.matmul_form(_bf16(x), _bf16(w), form, reps)
+    return float(acc), _np(y)
+
+
+def probe_transpose_chain(x, iters):
+    return _np(trel.transpose_chain(torch.from_numpy(x), iters))
+
+
+def probe_u8_store(res):
+    return _np(tu8.u8_phase_store(torch.from_numpy(res)))
+
+
+def probe_relayout_wrappers_on_cpu():
+    """The K8 and K10 wrappers on CPU tensors against their plain versions:
+    whether they are equal, and the kernels' launch counts they added."""
+    before = {**trel.launch_counts, **tu8.launch_counts}
+    equal = {}
+    for form in trel.FORMS:
+        x, w = trel.seeded_operands(40, 128, 24, form, "cpu")
+        got, want = trel.matmul_form(x, w, form, 5), \
+            trel.matmul_form_reference(x, w, form, 5)
+        equal[f"matmul_form:{form}"] = all(map(torch.equal, got, want))
+    x = trel.seeded_block("cpu", (40, 24))
+    equal["transpose_chain"] = torch.equal(
+        trel.transpose_chain(x, 3), trel.transpose_chain_reference(x, 3))
+    res = tu8.seeded_input("cpu", 256)
+    equal["u8_phase_store"] = torch.equal(
+        tu8.u8_phase_store(res), tu8.u8_phase_store_reference(res))
+    after = {**trel.launch_counts, **tu8.launch_counts}
+    return equal, {k: after[k] - before[k] for k in after}
+
+
+def probe_relayout_entry_points_without_gpu():
+    """The K8 and K10 card entry points where torch.cuda.is_available() is
+    False: the exception type each raised, or None."""
+    calls = {"relayout.main": trel.main, "relayout.measure": trel.measure,
+             "u8_store.main": tu8.main, "u8_store.measure": tu8.measure,
+             "u8_store.frame_input": tu8.frame_input}
+    raised = {}
+    with _no_cuda():
+        for name, fn in calls.items():
+            try:
+                fn()
+                raised[name] = None
+            except Exception as e:  # noqa: BLE001 - reported to the test
+                raised[name] = type(e).__name__
+    return raised
+
+
+def probe_relayout_bad_input(bad, device="cpu"):
+    """A K8 or K10 wrapper on input it does not take; raises.  K8: f32
+    operands, a form it does not know, x of the wrong shape, reps 0, and
+    on the card K not a multiple of 64 or above 1152 (the launch fails).
+    K10: 47 columns, M not a multiple of 128, bf16 res."""
+    form = "sublane" if bad == "x_shape" else "canonical"
+    k = {"k_step": 96, "k_max": 1216}.get(bad, 128)
+    x, w = trel.seeded_operands(40, k, 24, form, device)
+    if bad == "dtype":
+        x, w = x.float(), w.float()
+    elif bad == "x_shape":
+        x = x[:, :-1].contiguous().t().contiguous()
+    if bad in ("dtype", "form", "x_shape", "reps", "k_step", "k_max"):
+        trel.matmul_form(x, w, "rows" if bad == "form" else form,
+                         0 if bad == "reps" else 1)
+        return
+    res = tu8.seeded_input(device, 256)
+    if bad == "u8_cols":
+        res = res[:, :47].contiguous()
+    elif bad == "u8_rows":
+        res = res[:200].contiguous()
+    elif bad == "u8_dtype":
+        res = res.bfloat16()
+    tu8.u8_phase_store(res)
+
+
+def cuda_probe_matmul_form(m, k, n, form, reps):
+    """K8's product kernel and its plain version on the probe's seeded
+    operands on the card: the launch-count increment, y's shape, the
+    largest ratio of |dy| to relayout.product_bound and of |dacc| to
+    relayout.acc_bound, and whether y equals the plain version's."""
+    x, w = trel.seeded_operands(m, k, n, form, "cuda",
+                                np.random.default_rng(m * k + n))
+    key = f"matmul_form:{form}"
+    before = trel.launch_counts[key]
+    acc, y = trel.matmul_form(x, w, form, reps)
+    torch.cuda.synchronize()
+    launches = trel.launch_counts[key] - before
+    want_acc, want = trel.matmul_form_reference(x, w, form, reps)
+    yb = trel.product_bound(x, w, form)
+    d = (y.double() - want.double()).abs()
+    return dict(launches=launches, shape=tuple(y.shape),
+                y_ratio=float((d / yb.clamp_min(1e-300)).max()),
+                acc_ratio=abs(float(acc) - float(want_acc))
+                / trel.acc_bound(yb, want_acc, reps),
+                equal=torch.equal(y, want))
+
+
+def cuda_probe_transpose_chain(rows, cols, iters):
+    """K8's transpose-chain kernel and its plain version on one seeded x on
+    the card: the launch-count increment, the shape, whether they are
+    equal."""
+    x = trel.seeded_block("cuda", (rows, cols))
+    before = trel.launch_counts["transpose_chain"]
+    got = trel.transpose_chain(x, iters)
+    torch.cuda.synchronize()
+    launches = trel.launch_counts["transpose_chain"] - before
+    want = trel.transpose_chain_reference(x, iters)
+    return dict(launches=launches, shape=tuple(got.shape),
+                equal=torch.equal(got, want),
+                max_diff=float((got - want).abs().max()))
+
+
+def cuda_probe_u8_store(m):
+    """K10's kernel and its plain version on one seeded res (m, 48) on the
+    card: the launch-count increment, shape, dtype, whether they are
+    equal, max |difference| and the share of bytes that differ."""
+    res = tu8.seeded_input("cuda", m, seed=m)
+    before = tu8.launch_counts["u8_phase_store"]
+    got = tu8.u8_phase_store(res)
+    torch.cuda.synchronize()
+    launches = tu8.launch_counts["u8_phase_store"] - before
+    want = tu8.u8_phase_store_reference(res)
+    d = (got.int() - want.int()).abs()
+    return dict(launches=launches, shape=tuple(got.shape),
+                dtype=str(got.dtype), equal=torch.equal(got, want),
+                max_diff=int(d.max()), frac_diff=float((d > 0).float().mean()))
