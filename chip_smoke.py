@@ -45,6 +45,19 @@ Phases, each printed on its own line:
    bit-identical.  K10 (csrc/probe_u8.cu): the u8 phase store at (1024,
    48) and at a 4K frame's (518400, 48), drawn on the card, bit-identical
    (tanhf is torch's CUDA tanh; every step rounded apart on both sides).
+   K7 (csrc/probe_overlap.cu) from the probe's initial state, y (128,
+   15360) bf16, z (8, 15360) f32: the loops of its SASS by cuobjdump
+   (printed; mode both's loop must hold HMMA and SHFL); modes mxu and both
+   for 8 single steps from the kernel's previous state, y within
+   overlap.step_bound (one bf16 rounding after f32 sums in another order),
+   z bit-identical, and one 8-step launch equal to them; each mode at the
+   JAX counts (4000, 0), (0, 3000), (4000, 3000), z bit-identical to the
+   plain version (fmaf(z, c1, roll * c2) on both sides) and y's columns
+   128.. unchanged (y itself overflows to NaN near step 55).  K4
+   (csrc/probe_dw.cu): each form at e (192, 2176) f32 bit-identical to its
+   plain version (fmaf in the JAX order on both sides) at 1, 37 and 2000
+   reps, and chunked apart from scratch after one rep exactly at columns 0
+   and 127 of each output chunk.
 4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine on
    two alternating seeded frames, once per main path: w8a8 (calibrated on
@@ -134,7 +147,19 @@ Phases, each printed on its own line:
    version and the chain through .t().contiguous() and mul, all at 8) and
    at LONG_ITERS (printed), and its shared-memory floor.  K10 at (1024,
    48) and at the 4K frame (the kernels line; no single PyTorch call
-   computes it), its bound (bytes) and its plain version.
+   computes it), its bound (bytes) and its plain version.  K7: each
+   mode's ms at the JAX counts (the kernels line, with the plain version
+   timed in phase 3d and the same chains through torch.matmul /
+   torch.roll + mul + add: library_ms) and at equal counts
+   overlap.EQUAL_ITERS, the JAX probe's comparison (its t(c) runs both
+   chains 4000 times) and the one at equal counts with the overlap share
+   (t(a) + t(b) - t(c)) / min(t(a), t(b)); bounds: the product's
+   operations over the bf16 peak, the roll's over the FP32 peak (and its
+   shuffle floor, 32 a clock on one SM), the larger for both.  K4: each
+   form's ms per 2000 reps and us per band step against the bound
+   (operations over the FP32 peak) and the shared-memory floor, scaled by
+   the TPU geometry's 7119 band steps a frame, beside the plain version
+   and the chain through F.conv2d(groups=192) with cuDNN's TF32 off.
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -159,8 +184,8 @@ from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
-from denoise_gan_tpu_torch.probes import (fma_peak, int8_chain, relayout,
-                                          u8_store)
+from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
+                                          overlap, relayout, u8_store)
 from denoise_gan_tpu_torch.utils import card
 from denoise_gan_tpu_torch.utils.device import require_cuda
 
@@ -193,6 +218,10 @@ INT8_OP_S = 1979e12
 # RANDOM_STEPS
 BF16_STEPS = 16
 RANDOM_STEPS = 100
+# phase 3d: K7's y checked step by step for K7_STEPS steps (it overflows
+# near step 55); K4 at these reps, and at dw_forms.REPS
+K7_STEPS = 8
+K4_REPS = (1, 37)
 
 
 @dataclass(frozen=True)
@@ -247,7 +276,9 @@ COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts,
                                          fma_peak.launch_counts,
                                          int8_chain.launch_counts,
                                          relayout.launch_counts,
-                                         u8_store.launch_counts]
+                                         u8_store.launch_counts,
+                                         overlap.launch_counts,
+                                         dw_forms.launch_counts]
 
 
 def fired() -> dict[str, int]:
@@ -730,6 +761,122 @@ def k10_vs_plain(dev) -> dict[str, float]:
                                  "version")
         d_max = max(d_max, int(d.max()))
     return {"u8_phase_store": float(d_max)}
+
+
+def k7_vs_plain(dev) -> tuple[dict[str, float], dict[str, float]]:
+    """Phase 3d, K7: the kernel's loops in SASS by cuobjdump (printed; the
+    loop of mode both must hold HMMA and SHFL); modes mxu and both for
+    K7_STEPS single steps, each from the kernel's previous state, y's
+    columns 0..127 within overlap.step_bound of the plain version's step,
+    columns 128.. unchanged and z bit-identical, then one launch of the
+    K7_STEPS steps equal to them; each mode at the JAX counts, z
+    bit-identical to the plain version (timed once) and y's unchanging part
+    kept.  Returns (max |error| by kernels-line name, the plain versions'
+    ms at the JAX counts)."""
+    loops = overlap.sass_loop_counts()
+    if not loops:
+        raise AssertionError("cuobjdump read no overlap_kernel from the "
+                             "built library")
+    for key, found in loops.items():
+        print(f"  overlap_kernel<{key}> SASS loops with HMMA or SHFL: "
+              + "; ".join(", ".join(f"{k} {v}" for k, v in c.items())
+                          for c in found))
+    if not any(c["HMMA"] and c["SHFL"]
+                         for c in loops.get("both", [])):
+        raise AssertionError("overlap_kernel<both> has no loop holding "
+                             "both HMMA and SHFL")
+    y0, z0, w = overlap.initial_state(dev)
+    errs, plain_ms = {}, {}
+    for mi, vi in ((1, 0), (1, 1)):
+        name = f"overlap_chain:{overlap.mode(mi, vi)}"
+        y, z, ratio, dmax = y0, z0, 0.0, 0.0
+        for _ in range(K7_STEPS):
+            gy, gz, _ = overlap.overlap_chain(y, z, w, mi, vi)
+            torch.cuda.synchronize()
+            wy, wz, _ = overlap.overlap_chain_reference(y, z, w, mi, vi)
+            d = (gy[:, :overlap.ROWS].double()
+                 - wy[:, :overlap.ROWS].double()).abs()
+            b = overlap.step_bound(y, w, wy).clamp_min(1e-300)
+            ratio = max(ratio, float((d / b).max()))
+            dmax = max(dmax, float(d.max()))
+            if not (bool(torch.isfinite(gy).all()) and ratio <= 1 and
+                    torch.equal(gy[:, overlap.ROWS:], y0[:, overlap.ROWS:])
+                    and torch.equal(gz, wz)):
+                raise AssertionError(f"{name} step disagrees with its plain "
+                                     f"version (ratio to bound {ratio:.3f})")
+            y, z = gy, gz
+        one = overlap.overlap_chain(y0, z0, w, K7_STEPS * mi, K7_STEPS * vi)
+        if not (torch.equal(one[0], y) and torch.equal(one[1], z)):
+            raise AssertionError(f"{name}: one launch of {K7_STEPS} steps "
+                                 "differs from its steps")
+        print(f"  {name} steps 1-{K7_STEPS}: y within step_bound (max |d| "
+              f"{dmax:.3e}, {ratio:.3f} of the bound), z bit-identical; one "
+              f"launch equal to the steps")
+        errs[name] = dmax
+    for mi, vi in ((overlap.MXU_ITERS, 0), (0, overlap.VPU_ITERS),
+                   (overlap.MXU_ITERS, overlap.VPU_ITERS)):
+        name = f"overlap_chain:{overlap.mode(mi, vi)}"
+        gy, gz, _ = overlap.overlap_chain(y0, z0, w, mi, vi)
+        (wy, wz, _), plain_ms[name] = timed_once(
+            lambda: overlap.overlap_chain_reference(y0, z0, w, mi, vi))
+        same, dz = same_bits(gz, wz)
+        kept = torch.equal(gy[:, overlap.ROWS:], y0[:, overlap.ROWS:]) \
+            and (bool(mi) or torch.equal(gy, y0))
+        nan = float(torch.isnan(gy[:, :overlap.ROWS].float()).float().mean())
+        print(f"  {name} ({mi}, {vi}): z bit-identical "
+              f"{'held' if same else 'missed'} (max |d| {dz:.3e}); y "
+              f"columns 128.. kept {'held' if kept else 'missed'}; "
+              f"{nan:.3f} of y[:, 0:128] NaN (plain "
+              f"{float(torch.isnan(wy[:, :overlap.ROWS].float()).float().mean()):.3f})")
+        if not (same and kept):
+            raise AssertionError(f"{name} at ({mi}, {vi}) disagrees with its "
+                                 "plain version")
+        errs[name] = max(errs.get(name, 0.0), dz)
+    return errs, plain_ms
+
+
+def k4_vs_plain(dev) -> tuple[dict[str, float], dict[str, float]]:
+    """Phase 3d, K4: every form at the JAX shape bit-identical (e and d) to
+    its plain version at K4_REPS reps and at dw_forms.REPS; chunked differs
+    from scratch after one rep exactly at columns 0 and 127 of every output
+    chunk.  The plain version has two functions, the flat rolls of scratch,
+    value and planes and chunked's rolls within a chunk, each run (and
+    timed) once at dw_forms.REPS for the forms that share it.  Returns (max
+    |error| by kernels-line name, the plain versions' ms at dw_forms.REPS)."""
+    e, w = dw_forms.initial_state(dev)
+    errs, plain_ms, first, plain = {}, {}, {}, {}
+    for form in dw_forms.FORMS:
+        name = f"dw_chain:{form}"
+        fn = "chunked" if form == "chunked" else "flat"
+        for reps in K4_REPS + (dw_forms.REPS,):
+            ge, gd = dw_forms.dw_chain(e, w, reps, form)
+            torch.cuda.synchronize()
+            if (fn, reps) not in plain:
+                plain[fn, reps] = timed_once(
+                    lambda: dw_forms.dw_chain_reference(e, w, reps, form))
+            (we, wd), p_ms = plain[fn, reps]
+            same = torch.equal(ge, we) and torch.equal(gd, wd)
+            d = float((gd - wd).abs().max())
+            if reps == 1:
+                first[form] = gd
+            print(f"  {name} ({e.shape[0]}, {dw_forms.MB}) x {reps}: "
+                  f"bit-identical {'held' if same else 'missed'} (max |d| "
+                  f"{d:.3e}, max |plain| {float(wd.abs().max()):.3e})")
+            if not same:
+                raise AssertionError(f"{name} x {reps} disagrees with its "
+                                     "plain version")
+            errs[name] = max(errs.get(name, 0.0), d)
+        plain_ms[name] = p_ms
+    diff = (first["chunked"] != first["scratch"]).reshape(
+        e.shape[0], -1, dw_forms.CHUNK)
+    cols = torch.nonzero(diff.any(0).any(0)).flatten().tolist()
+    print(f"  chunked vs scratch after one rep: differ at chunk columns "
+          f"{cols}, on {float(diff[..., [0, -1]].float().mean()):.3f} of "
+          f"those")
+    if cols != [0, dw_forms.CHUNK - 1]:
+        raise AssertionError("chunked differs from scratch elsewhere than "
+                             "at its chunks' edge columns")
+    return errs, plain_ms
 
 
 def k3_main_path(model, frames, exact: bool):
@@ -1317,6 +1464,78 @@ def k8_k10_times(dev, errs: dict[str, float]) -> list[dict]:
     return entries
 
 
+def k7_k4_times(dev, errs: dict[str, float],
+                plain_ms: dict[str, float]) -> list[dict]:
+    """Phase 5 for K7 and K4.  K7: each mode's ms (CUDA events, the mean
+    of overlap.TIMED launches) at the JAX counts and at equal counts
+    overlap.EQUAL_ITERS, the JAX probe's comparison (its t(c) runs both
+    chains 4000 times) and the one at equal counts with the overlap share;
+    the chains through library calls at the JAX counts (library_ms); the
+    bound per mode (the product's operations at the bf16 peak, the roll +
+    FMA's at the FP32 peak, the larger of the two for both) and the roll's
+    shuffle floor (one row's 15,360 shuffles an iteration on one SM at 32
+    a clock).  K4: each form's ms per launch of dw_forms.REPS reps, us per
+    band step against the bound (operations at the FP32 peak) and the
+    shared-memory floor, scaled by the TPU geometry's 7119 band steps a
+    frame, and the chain through F.conv2d(groups=192) with cuDNN's TF32
+    off (library_ms).  Returns the kernels line's entries (the JAX counts;
+    launches 0: no frame path runs the probes)."""
+    peak, sms, mhz = card.fp32_peak(dev)
+    entries = []
+    ms = overlap.measure(dev)
+    cmp = overlap.compare(ms)
+    n = overlap.EQUAL_ITERS
+    y0, z0, w = overlap.initial_state(dev)
+    for mi, vi in ((overlap.MXU_ITERS, 0), (0, overlap.VPU_ITERS),
+                   (overlap.MXU_ITERS, overlap.VPU_ITERS)):
+        name = f"overlap_chain:{overlap.mode(mi, vi)}"
+        mma_ops, fma_ops = overlap.ops(mi, vi)
+        b_ms, b_by = max(bound(overlap.n_bytes(), [(mma_ops, BF16_FLOP_S)]),
+                         bound(overlap.n_bytes(), [(fma_ops, peak)]))
+        lib = card.cuda_ms(
+            lambda: overlap.library_chain(y0, z0, w, mi, vi), 1)
+        shuffle_ms = max(mi, vi) * overlap.M / 32 / (mhz * 1e3) if vi else 0
+        print(f"  {name} ({mi}, {vi}): {ms[mi, vi]:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), shuffle floor {shuffle_ms:.3f} ms; "
+              f"plain version {plain_ms[name]:.1f} ms; library calls "
+              f"{lib:.2f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "denoise_gan_tpu_torch/csrc/probe_overlap.cu",
+            "replaces": "tools/exp_overlap_probe.py:32", "launches": 0,
+            "max_abs_err": errs[name], "ms": ms[mi, vi],
+            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib})
+    print(f"    the JAX probe's comparison: sum {cmp['jax_sum']:.3f}, max "
+          f"{cmp['jax_max']:.3f}, interleaved {cmp['jax_c']:.3f} ms")
+    print(f"    equal counts n={n}: t(a) {ms[n, 0]:.3f}, t(b) {ms[0, n]:.3f}, "
+          f"t(c) {cmp['c']:.3f} ms; sum {cmp['sum']:.3f}, max "
+          f"{cmp['max']:.3f}; overlap share {cmp['share']:.3f} (t(c) is "
+          f"set by the 8 SMs that run both chains)")
+    reps = dw_forms.REPS
+    times = dw_forms.measure(dev)
+    lib = dw_forms.library_ms(dev)
+    b_ms, b_by = bound(dw_forms.n_bytes(), [(dw_forms.ops(reps), peak)])
+    for form in dw_forms.FORMS:
+        name = f"dw_chain:{form}"
+        us = times[form] / reps * 1e3
+        floor = dw_forms.smem_floor_ms(form, sms, mhz) * 1e3
+        print(f"  {name} x {reps}: {times[form]:.3f} ms, {us:.3f} us/band "
+              f"step (x {dw_forms.FRAME_STEPS} band steps of the TPU "
+              f"geometry: {us * dw_forms.FRAME_STEPS / 1e3:.2f} ms), bound "
+              f"{b_ms / reps * 1e3:.3f} us ({b_by}), shared-memory floor "
+              f"{floor:.3f} us; plain version {plain_ms[name]:.1f} ms; "
+              f"F.conv2d chain (TF32 off) {lib[form]:.2f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "denoise_gan_tpu_torch/csrc/probe_dw.cu",
+            "replaces": "tools/exp_dw_forms.py:96", "launches": 0,
+            "max_abs_err": errs[name], "ms": times[form],
+            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib[form]})
+    return entries
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -1344,10 +1563,12 @@ def main() -> None:
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
-          f"(K, {int8_chain.M}), K8 and K10 at the JAX shapes, K10 also at "
-          "a 4K frame):")
+          f"(K, {int8_chain.M}), K8, K10, K7 and K4 at the JAX shapes, K10 "
+          "also at a 4K frame):")
     probe_errs = {**k9_vs_plain(dev), **k6_vs_plain(dev), **k8_vs_plain(dev),
                   **k10_vs_plain(dev)}
+    k7_errs, k7_plain = k7_vs_plain(dev)
+    k4_errs, k4_plain = k4_vs_plain(dev)
 
     # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
@@ -1390,8 +1611,9 @@ def main() -> None:
                         body, k_eng, t_eng))
 
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
-    probes = probe_times(dev, smi, probe_errs) + k8_k10_times(dev,
-                                                               probe_errs)
+    probes = probe_times(dev, smi, probe_errs) + k8_k10_times(
+        dev, probe_errs) + k7_k4_times(dev, {**k7_errs, **k4_errs},
+                                       {**k7_plain, **k4_plain})
 
     kernels = []
     for fam in FAMILIES:

@@ -35,7 +35,9 @@ _MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # K6's dot chain (wt, y, k, m, iters, int8, stream); K8's product
 # (x, w, y, parts, acc, m, k, n, sublane, reps, splits, stream) and
 # transpose chain (x, out, rows, cols, iters, c, stream); K10's u8 store
-# (res, out, bands, stream)
+# (res, out, bands, stream); K7's overlap chains (w, y, z, iters, mma, vpu,
+# c1, c2, stream); K4's depthwise chain (e, w, d, nch, reps, form, cu,
+# stream)
 _PROBE_FMA_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _PROBE_ROLL_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
@@ -47,6 +49,10 @@ _PROBE_MM_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
 _PROBE_TRANSPOSE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PROBE_U8_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_PROBE_OVERLAP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_PROBE_DW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_float, ctypes.c_void_p]
 ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
@@ -54,7 +60,9 @@ ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_probe_dot_chain": _PROBE_DOT_ARGS,
                 "dgt_probe_matmul_form": _PROBE_MM_ARGS,
                 "dgt_probe_transpose_chain": _PROBE_TRANSPOSE_ARGS,
-                "dgt_probe_u8_store": _PROBE_U8_ARGS}
+                "dgt_probe_u8_store": _PROBE_U8_ARGS,
+                "dgt_probe_overlap": _PROBE_OVERLAP_ARGS,
+                "dgt_probe_dw": _PROBE_DW_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -116,6 +124,19 @@ def build_library() -> Path:
     build_log = log
     os.replace(tmp, lib)
     return lib
+
+
+def sass_functions() -> dict[str, str]:
+    """Each kernel's SASS in the built library, by mangled name, from
+    cuobjdump beside nvcc; {} where the toolkit has none."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(build_library())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return dict(block.split("\n", 1)
+                for block in sass.split("Function : ")[1:])
 
 
 def load_library() -> ctypes.CDLL:

@@ -15,4 +15,13 @@ card at the JAX probe's shapes.  No frame path runs them.
   the tails' shapes, and a chain of in-kernel transposes.
 * ``u8_store``: tools/exp_u8_store.py (K10), the tails' tanh -> u8
   epilogue and its four-phase split alone, up to a 4K frame.
+* ``overlap``: tools/exp_overlap_probe.py (K7), a tensor-core product
+  chain and a warp-shuffle roll + FMA chain, alone and interleaved in one
+  loop body: whether one SM's tensor and CUDA cores overlap.
+* ``dw_forms``: tools/exp_dw_forms.py (K4), a chained 3x3 depthwise on a
+  192-channel band in four forms (rolled copies, rolls as addresses, a
+  register window with shuffles, weight planes).
+
+Run each with ``python -m denoise_gan_tpu_torch.probes.<name>`` on a CUDA
+GPU.
 """

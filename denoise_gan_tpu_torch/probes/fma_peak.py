@@ -63,15 +63,16 @@ def _check(x: torch.Tensor, iters: int) -> None:
         raise ValueError(f"iters must be >= 0, got {iters}")
 
 
-def fma_f32(a: torch.Tensor, c: float, b: torch.Tensor | float
-            ) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, c: float | torch.Tensor,
+            b: torch.Tensor | float) -> torch.Tensor:
     """a * c + b rounded once to float32, as CUDA's ``fmaf``, for float32 a
-    and b and a float32 value c.  The product is exact in float64 (24 + 24
-    bits); the sum is s + e exactly (TwoSum); s is rounded to odd (moved one
-    float64 ulp towards e where e != 0 and s is even), and a value rounded
-    to odd at 53 bits rounds to 24 bits as the exact sum would.  Where s is
-    not finite it stands as it is."""
-    p = a.double() * c
+    and b and a float32 value (or a float32 tensor that broadcasts with a)
+    c.  The product is exact in float64 (24 + 24 bits); the sum is s + e
+    exactly (TwoSum); s is rounded to odd (moved one float64 ulp towards e
+    where e != 0 and s is even), and a value rounded to odd at 53 bits
+    rounds to 24 bits as the exact sum would.  Where s is not finite it
+    stands as it is."""
+    p = a.double() * (c.double() if isinstance(c, torch.Tensor) else c)
     b = b.double() if isinstance(b, torch.Tensor) else float(b)
     s = p + b
     bv = s - p

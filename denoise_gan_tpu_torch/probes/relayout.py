@@ -37,10 +37,6 @@ work through PyTorch calls (``torch.matmul``; ``.t().contiguous()`` and
 
 from __future__ import annotations
 
-import os
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import torch
 
@@ -246,18 +242,12 @@ def library_transpose_chain(x: torch.Tensor, iters: int) -> torch.Tensor:
 def sass_counts() -> dict[str, dict[str, int]]:
     """Per form, the product kernel's LDSM instructions (all, and the
     transposed LDSM.16.MT88) and HMMA instructions in the built library's
-    SASS, by cuobjdump beside nvcc; {} where the toolkit has none."""
+    SASS (``_build.sass_functions``); {} where the toolkit has no
+    cuobjdump."""
     from denoise_gan_tpu_torch.ops import _build
 
-    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    if not os.access(tool, os.X_OK):
-        return {}
-    sass = subprocess.run([str(tool), "-sass", str(_build.build_library())],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     counts = {}
-    for block in sass.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0]
+    for name, block in _build.sass_functions().items():
         if "matmul_form_kernel" not in name:
             continue
         lines = block.splitlines()

@@ -260,3 +260,52 @@ def test_probe_matmul_form_launch_refuses_k(port, bad):
     block's shared memory: the entry point refuses the launch."""
     with pytest.raises(RuntimeError):
         port("probe_relayout_bad_input", bad, device="cuda")
+
+
+# K7 and K4 (probes/overlap.py, probes/dw_forms.py).  K7: z bit-identical
+# to the plain version at the JAX counts in every mode (fmaf(z, c1,
+# roll * c2) on both sides), y's columns 128.. kept; y step by step for 8
+# steps from the kernel's previous state, each within overlap.step_bound
+# (one bf16 rounding after f32 sums in another order), and one launch of
+# the 8 steps equal to them.  K4: every form bit-identical to its plain
+# version (fmaf in the JAX order on both sides) at 1, 37 and 2000 reps and
+# at 1, 7 and 192 channels.
+
+@pytest.mark.parametrize("counts", [(4000, 0), (0, 3000), (4000, 3000),
+                                    (1, 2)])
+def test_probe_overlap_z_matches_plain(port, counts):
+    r = port("cuda_probe_overlap_full", *counts)
+    print(r)
+    assert r["launches"] == 1 and r["z_equal"] and r["kept"], r
+
+
+@pytest.mark.parametrize("counts", [(1, 0), (1, 1)])
+def test_probe_overlap_y_steps_within_bound(port, counts):
+    r = port("cuda_probe_overlap_steps", *counts, 8)
+    print(r)
+    assert r["finite"] and r["equal"] and r["one_launch"], r
+    assert r["ratio"] <= 1, r
+
+
+@pytest.mark.parametrize("bad", ["dtype", "z_shape", "w_shape", "iters",
+                                 "width", "contiguous", "device"])
+def test_probe_overlap_refuses_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("probe_overlap_bad_input", bad, device="cuda")
+
+
+@pytest.mark.parametrize("nch", [1, 7, 192])
+@pytest.mark.parametrize("reps", [1, 37, 2000])
+@pytest.mark.parametrize("form", ["scratch", "value", "chunked", "planes"])
+def test_probe_dw_matches_plain(port, form, reps, nch):
+    r = port("cuda_probe_dw", nch, reps, form)
+    print(r)
+    assert r["launches"] == 1 and r["equal"], r
+    assert r["shapes"] == ((nch, 2176), (nch, 1920))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "form", "width", "w_shape",
+                                 "reps", "contiguous", "device"])
+def test_probe_dw_refuses_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("probe_dw_bad_input", bad, device="cuda")

@@ -9,7 +9,8 @@ child process
 (:func:`torch_process`), which imports torch and the port, and calls the
 functions of ``tests/torch_side.py`` there.  Arguments and results are numpy
 arrays and plain Python values; an exception raised in the child is raised
-again in the test.
+again in the test.  The child ends itself within a second of its parent's
+death, so a worker that crashes leaves no torch process behind.
 """
 
 from __future__ import annotations
@@ -19,10 +20,14 @@ import contextlib
 import importlib
 import importlib.util
 import multiprocessing
+import os
+import threading
+import time
 
 import pytest
 
 TIMEOUT_S = 600     # one call; the slowest takes well under a minute on CPU
+PARENT_POLL_S = 1.0  # how often the child checks that its parent lives
 
 
 def skip_without_torch() -> None:
@@ -30,6 +35,18 @@ def skip_without_torch() -> None:
     importing it."""
     if importlib.util.find_spec("torch") is None:
         pytest.skip("torch is not installed", allow_module_level=True)
+
+
+def _exit_with_parent(parent: int) -> None:
+    """In the child, at its start: a daemon thread that ends the process
+    once its parent ``parent`` is gone (the child is then re-parented)."""
+    def watch() -> None:
+        while os.getppid() == parent:
+            time.sleep(PARENT_POLL_S)
+        os._exit(1)
+
+    threading.Thread(target=watch, name="exit-with-parent",
+                     daemon=True).start()
 
 
 def _run(name: str, args: tuple, kwargs: dict):
@@ -44,7 +61,9 @@ def torch_process():
     ``torch_side.<name>`` in one spawned child process and returns its
     result."""
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=ctx, initializer=_exit_with_parent,
+            initargs=(os.getpid(),)) as pool:
         def call(name: str, *args, **kwargs):
             return pool.submit(_run, name, args, kwargs).result(TIMEOUT_S)
 

@@ -28,8 +28,10 @@ from denoise_gan_tpu_torch.ops import image as timage
 from denoise_gan_tpu_torch.ops import mbconv as tmbconv
 from denoise_gan_tpu_torch.ops import tail as ttail
 from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
+from denoise_gan_tpu_torch.probes import dw_forms as tdw
 from denoise_gan_tpu_torch.probes import fma_peak as tfma
 from denoise_gan_tpu_torch.probes import int8_chain as tdot
+from denoise_gan_tpu_torch.probes import overlap as tov
 from denoise_gan_tpu_torch.probes import relayout as trel
 from denoise_gan_tpu_torch.probes import u8_store as tu8
 from denoise_gan_tpu_torch.utils.device import require_cuda, resolve_device
@@ -569,6 +571,11 @@ def body_samples(params, stats, height, width, brc, frames):
 _CUDA_TAILS = {}
 
 
+def process_id() -> int:
+    """The child process's id."""
+    return os.getpid()
+
+
 def cuda_available():
     return torch.cuda.is_available()
 
@@ -977,3 +984,198 @@ def cuda_probe_u8_store(m):
     return dict(launches=launches, shape=tuple(got.shape),
                 dtype=str(got.dtype), equal=torch.equal(got, want),
                 max_diff=int(d.max()), frac_diff=float((d > 0).float().mean()))
+
+
+# ---------------------------------------------------------------------------
+# probes/overlap.py (K7) and probes/dw_forms.py (K4)
+
+@contextlib.contextmanager
+def _one_thread():
+    """torch's CPU ops on one thread inside the block: the plain versions'
+    many small elementwise ops run far slower on several threads when the
+    test workers share the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def probe_overlap_initial_state():
+    """(y, z, w) of overlap.initial_state on the CPU, as numpy (bf16 as
+    f32)."""
+    return tuple(_np(t) for t in tov.initial_state("cpu"))
+
+
+def probe_overlap_chain(y, z, w, mxu_iters, vpu_iters):
+    """overlap.overlap_chain on the CPU (its wrapper runs the plain version
+    there) from numpy y and w holding bf16 values: (y, z, o) as numpy."""
+    with _one_thread():
+        return tuple(_np(t) for t in tov.overlap_chain(
+            _bf16(y), torch.from_numpy(z), _bf16(w), mxu_iters, vpu_iters))
+
+
+def probe_loop_counts(sass):
+    return tov.loop_counts(sass)
+
+
+def probe_dw_initial_state(nch=tdw.NCH):
+    return tuple(_np(t) for t in tdw.initial_state("cpu", nch))
+
+
+def probe_dw_chain(e, w, reps, form):
+    """dw_forms.dw_chain on the CPU (the plain version): (e, d) as numpy."""
+    with _one_thread():
+        return tuple(_np(t) for t in tdw.dw_chain(
+            torch.from_numpy(e), torch.from_numpy(w), reps, form))
+
+
+def probe_overlap_dw_wrappers_on_cpu():
+    """The K7 and K4 wrappers on CPU tensors against their plain versions,
+    at a narrow y and z and a few channels: whether they are equal, and the
+    kernels' launch counts they added."""
+    with _one_thread():
+        return _overlap_dw_wrappers_on_cpu()
+
+
+def _overlap_dw_wrappers_on_cpu():
+    before = {**tov.launch_counts, **tdw.launch_counts}
+    y, z, w = tov.initial_state("cpu")
+    y, z = y[:, :384].contiguous(), z[:, :384].contiguous()
+    equal = {}
+    for mi, vi in ((3, 0), (0, 3), (3, 2)):
+        got = tov.overlap_chain(y, z, w, mi, vi)
+        want = tov.overlap_chain_reference(y, z, w, mi, vi)
+        equal[f"overlap_chain:{tov.mode(mi, vi)}"] = all(
+            map(torch.equal, got, want))
+    e, w4 = tdw.initial_state("cpu", 5)
+    for form in tdw.FORMS:
+        got, want = tdw.dw_chain(e, w4, 2, form), \
+            tdw.dw_chain_reference(e, w4, 2, form)
+        equal[f"dw_chain:{form}"] = all(map(torch.equal, got, want))
+    after = {**tov.launch_counts, **tdw.launch_counts}
+    return equal, {k: after[k] - before[k] for k in after}
+
+
+def probe_overlap_dw_entry_points_without_gpu():
+    """The K7 and K4 card entry points where torch.cuda.is_available() is
+    False: the exception type each raised, or None."""
+    calls = {"overlap.main": tov.main, "overlap.measure": tov.measure,
+             "overlap.initial_state": tov.initial_state,
+             "dw_forms.main": tdw.main, "dw_forms.measure": tdw.measure,
+             "dw_forms.library_ms": tdw.library_ms,
+             "dw_forms.initial_state": tdw.initial_state}
+    raised = {}
+    with _no_cuda():
+        for name, fn in calls.items():
+            try:
+                fn()
+                raised[name] = None
+            except Exception as e:  # noqa: BLE001 - reported to the test
+                raised[name] = type(e).__name__
+    return raised
+
+
+def probe_overlap_bad_input(bad, device="cpu"):
+    """overlap_chain on input it does not take; raises.  Everywhere: f32 y,
+    z of the wrong shape, w of the wrong shape, a negative count; on the
+    card also a width other than 15360, a non-contiguous z and w on the
+    CPU."""
+    y, z, w = tov.initial_state(device)
+    if bad == "dtype":
+        y = y.float()
+    elif bad == "z_shape":
+        z = z[:4]
+    elif bad == "w_shape":
+        w = w[:, :64]
+    elif bad == "width":
+        y, z = y[:, :256].contiguous(), z[:, :256].contiguous()
+    elif bad == "contiguous":
+        z = z.t().contiguous().t()
+    elif bad == "device":
+        w = w.cpu()
+    tov.overlap_chain(y, z, w, -1 if bad == "iters" else 2, 1)
+
+
+def probe_dw_bad_input(bad, device="cpu"):
+    """dw_chain on input it does not take; raises: f64 e, a form it does
+    not know, a band narrower than 2176, w of the wrong shape, reps 0, and
+    on the card a non-contiguous w and w on the CPU."""
+    e, w = tdw.initial_state(device, 3)
+    form = "rows" if bad == "form" else "value"
+    if bad == "dtype":
+        e = e.double()
+    elif bad == "width":
+        e = e[:, :2048].contiguous()
+    elif bad == "w_shape":
+        w = w[:, :2]
+    elif bad == "contiguous":
+        w = w.t().contiguous().t()
+    elif bad == "device":
+        w = w.cpu()
+    tdw.dw_chain(e, w, 0 if bad == "reps" else 1, form)
+
+
+def cuda_probe_overlap_full(mxu_iters, vpu_iters):
+    """K7's kernel and its plain version on the card from the initial state
+    at the given counts: the launch-count increment, whether z is
+    bit-identical, whether y's columns 128.. kept their values (and all of
+    y where the product does not run), and the share of y[:, 0:128] that
+    is NaN on each side."""
+    y, z, w = tov.initial_state("cuda")
+    key = f"overlap_chain:{tov.mode(mxu_iters, vpu_iters)}"
+    before = tov.launch_counts[key]
+    gy, gz, _ = tov.overlap_chain(y, z, w, mxu_iters, vpu_iters)
+    torch.cuda.synchronize()
+    launches = tov.launch_counts[key] - before
+    wy, wz, _ = tov.overlap_chain_reference(y, z, w, mxu_iters, vpu_iters)
+    return dict(launches=launches, z_equal=torch.equal(gz, wz),
+                kept=torch.equal(gy[:, tov.ROWS:], y[:, tov.ROWS:])
+                and (bool(mxu_iters) or torch.equal(gy, y)),
+                nan=float(torch.isnan(gy[:, :tov.ROWS].float()).float()
+                          .mean()),
+                plain_nan=float(torch.isnan(wy[:, :tov.ROWS].float())
+                                .float().mean()))
+
+
+def cuda_probe_overlap_steps(mxu_iters, vpu_iters, steps):
+    """K7 on the card, step by step from the initial state: each kernel
+    step of (mxu_iters, vpu_iters) (0 or 1 each) from the kernel's previous
+    state against the plain version's step from the same state: the
+    largest ratio of y's difference to overlap.step_bound, whether z was
+    equal and y's columns 128.. kept at every step, and whether one launch
+    of the steps equals them."""
+    y0, z0, w = tov.initial_state("cuda")
+    y, z, ratio, equal = y0, z0, 0.0, True
+    for _ in range(steps):
+        gy, gz, _ = tov.overlap_chain(y, z, w, mxu_iters, vpu_iters)
+        torch.cuda.synchronize()
+        wy, wz, _ = tov.overlap_chain_reference(y, z, w, mxu_iters,
+                                                vpu_iters)
+        d = (gy[:, :tov.ROWS].double() - wy[:, :tov.ROWS].double()).abs()
+        ratio = max(ratio, float((d / tov.step_bound(y, w, wy)
+                                  .clamp_min(1e-300)).max()))
+        equal &= torch.equal(gz, wz) and \
+            torch.equal(gy[:, tov.ROWS:], y0[:, tov.ROWS:])
+        y, z = gy, gz
+    one = tov.overlap_chain(y0, z0, w, steps * mxu_iters, steps * vpu_iters)
+    return dict(ratio=ratio, equal=equal,
+                one_launch=torch.equal(one[0], y) and torch.equal(one[1], z),
+                finite=bool(torch.isfinite(y.float()).all()))
+
+
+def cuda_probe_dw(nch, reps, form):
+    """K4's kernel of one form and its plain version on the card from the
+    initial state at nch channels: the launch-count increment, shapes, and
+    whether e and d are bit-identical."""
+    e, w = tdw.initial_state("cuda", nch)
+    key = f"dw_chain:{form}"
+    before = tdw.launch_counts[key]
+    ge, gd = tdw.dw_chain(e, w, reps, form)
+    torch.cuda.synchronize()
+    launches = tdw.launch_counts[key] - before
+    we, wd = tdw.dw_chain_reference(e, w, reps, form)
+    return dict(launches=launches, shapes=(tuple(ge.shape), tuple(gd.shape)),
+                equal=torch.equal(ge, we) and torch.equal(gd, wd),
+                max_diff=float((gd - wd).abs().max()))
