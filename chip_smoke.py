@@ -57,7 +57,17 @@ Phases, each printed on its own line:
    (csrc/probe_dw.cu): each form at e (192, 2176) f32 bit-identical to its
    plain version (fmaf in the JAX order on both sides) at 1, 37 and 2000
    reps, and chunked apart from scratch after one rep exactly at columns 0
-   and 127 of each output chunk.
+   and 127 of each output chunk.  K5 (csrc/probe_mbpipe.cu) in each mode
+   (one chain; two chains with their own barriers, or one barrier with
+   their phases aligned or offset) from the probe's initial state, r
+   (32, 2176) bf16: launches of 1, 2 and 37 steps, each adding one to its
+   launch count, the last step against the plain version's pieces from the
+   kernel's own bands one step earlier (mbpipe.check: E and p within
+   mbpipe.expand_bound and project_bound, tensor-core f32 sums in another
+   order; D bit-identical to the depthwise of the kernel's own E; the new
+   bands bit-identical to the update from the kernel's own p), and the
+   same at 2 steps on one band per SM, every band also equal to that band
+   launched alone.
 4. FSRGAN engine: the full-width FSRGAN generator (gf=32, 6 blocks) from
    numpy-seeded weights, 1080p -> 4K through build_fsrgan_kernel_engine on
    two alternating seeded frames, once per main path: w8a8 (calibrated on
@@ -159,7 +169,16 @@ Phases, each printed on its own line:
    form's ms per 2000 reps and us per band step against the bound
    (operations over the FP32 peak) and the shared-memory floor, scaled by
    the TPU geometry's 7119 band steps a frame, beside the plain version
-   and the chain through F.conv2d(groups=192) with cuDNN's TF32 off.
+   and the chain through F.conv2d(groups=192) with cuDNN's TF32 off.  K5,
+   one band per SM: each mode's ms per launch of 1500 steps (the JAX
+   default; the modes timed in order, then in reverse), nvidia-smi's SM
+   clock, power and temperature while it runs, us per band step over the
+   card, x 7119 band steps, the bound (the larger of the tensor-core flops
+   over the bf16 peak and the CUDA-core operations over the FP32 peak, the
+   JAX step's work once), the gain t1/t2 and aligned/offset; at 32 steps
+   (the kernels line) the
+   kernel, its plain version and the same steps through torch.matmul,
+   torch.roll and elementwise ops (library_ms, TF32 off).
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
@@ -185,7 +204,8 @@ from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
-                                          overlap, relayout, u8_store)
+                                          mbpipe, overlap, relayout,
+                                          u8_store)
 from denoise_gan_tpu_torch.utils import card
 from denoise_gan_tpu_torch.utils.device import require_cuda
 
@@ -222,6 +242,8 @@ RANDOM_STEPS = 100
 # near step 55); K4 at these reps, and at dw_forms.REPS
 K7_STEPS = 8
 K4_REPS = (1, 37)
+# phase 3d: K5's last step checked at these step counts
+K5_REPS = (1, 2, 37)
 
 
 @dataclass(frozen=True)
@@ -278,7 +300,8 @@ COUNTS = [f.counts for f in FAMILIES] + [mbconv.launch_counts,
                                          relayout.launch_counts,
                                          u8_store.launch_counts,
                                          overlap.launch_counts,
-                                         dw_forms.launch_counts]
+                                         dw_forms.launch_counts,
+                                         mbpipe.launch_counts]
 
 
 def fired() -> dict[str, int]:
@@ -877,6 +900,39 @@ def k4_vs_plain(dev) -> tuple[dict[str, float], dict[str, float]]:
         raise AssertionError("chunked differs from scratch elsewhere than "
                              "at its chunks' edge columns")
     return errs, plain_ms
+
+
+def k5_vs_plain(dev) -> dict[str, float]:
+    """Phase 3d, K5: in every mode at the JAX shape, from the probe's
+    initial state, a launch of K5_REPS steps held by mbpipe.check (its
+    launch count must go up by one; its last step against the plain
+    version's pieces from the kernel's own bands one step earlier: E and p
+    within their tensor-core bounds, D and the new bands bit-identical);
+    then the same at 2 steps on one band per SM, every band also equal to
+    that band alone.  Returns max |error| of E and p by kernels-line
+    name."""
+    st = mbpipe.initial_state(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {}
+    for chains, sync in mbpipe.MODES:
+        name = mbpipe.mode_key(chains, sync)
+        for reps, bands in [(n, 1) for n in K5_REPS] + [(2, sms)]:
+            state = st if bands == 1 else mbpipe.band_state(st, bands)
+            r = mbpipe.check(state, reps, chains, sync)
+            same = r.get("bands_equal", True)
+            print(f"  {name} x {reps} on {bands} band(s): launches "
+                  f"{r['launches']}; E {r['e_err']:.3e} ({r['e_ratio']:.3f} "
+                  f"of its bound), p {r['p_err']:.3e} ({r['p_ratio']:.3f}); "
+                  f"D bit-identical {'held' if r['d_equal'] else 'missed'}, "
+                  f"r {'held' if r['r_equal'] else 'missed'}"
+                  + ("" if bands == 1 else ", every band equal to that band "
+                     f"alone {'held' if same else 'missed'}"))
+            if not (r["launches"] == 1 and r["d_equal"] and r["r_equal"] and
+                    r["e_ratio"] <= 1 and r["p_ratio"] <= 1 and same):
+                raise AssertionError(f"{name} x {reps} on {bands} band(s) "
+                                     "disagrees with its plain version")
+            errs[name] = max(errs.get(name, 0.0), r["e_err"], r["p_err"])
+    return errs
 
 
 def k3_main_path(model, frames, exact: bool):
@@ -1536,6 +1592,63 @@ def k7_k4_times(dev, errs: dict[str, float],
     return entries
 
 
+def k5_times(dev, errs: dict[str, float]) -> list[dict]:
+    """Phase 5 for K5, one band per SM from the initial state: each mode's
+    ms per launch of mbpipe.REPS steps (CUDA events, the mean of
+    mbpipe.TIMED launches; two readings, the modes in order and then in
+    reverse), the SM clock, power and temperature read while it runs,
+    us per band step over the card, the TPU geometry's frame (x
+    FRAME_STEPS), the bound, the gain t1/t2 and aligned/offset; and at
+    mbpipe.LINE_REPS steps (the kernels line) the
+    kernel, the plain version and the same steps through torch.matmul,
+    torch.roll and elementwise ops (library_ms, TF32 off), one run each.
+    Returns the kernels line's entries (launches 0: no frame path runs
+    the probes)."""
+    peak, sms, _ = card.fp32_peak(dev)
+    reps, line = mbpipe.REPS, mbpipe.LINE_REPS
+
+    def k5_bound(steps: int, chains: int) -> tuple[float, str]:
+        tc, cc = mbpipe.ops(steps, chains, sms)
+        n_bytes = mbpipe.n_bytes(chains, sms)
+        return max(bound(n_bytes, [(tc, BF16_FLOP_S)]),
+                   bound(n_bytes, [(cc, peak)]))
+
+    ms = mbpipe.measure(dev)
+    smi = mbpipe.clocks(dev)
+    st = mbpipe.band_state(mbpipe.initial_state(dev), sms)
+    yard = mbpipe.yardstick_ms(dev)
+    entries, per = [], {}
+    for chains, sync in mbpipe.MODES:
+        name = mbpipe.mode_key(chains, sync)
+        mean = sum(ms[name]) / len(ms[name])
+        per[name] = mbpipe.us_per_step(mean, reps, chains, sms)
+        b_ms, b_by = k5_bound(reps, chains)
+        k_ms = card.cuda_ms(lambda: mbpipe.mbpipe_chain(st, line, chains,
+                                                        sync), mbpipe.TIMED)
+        l_ms, l_by = k5_bound(line, chains)
+        p_ms, lib = yard[f"plain:{chains}"], yard[f"library:{chains}"]
+        print(f"  {name} x {reps} on {sms} bands: {mean:.3f} ms (readings "
+              f"{', '.join(f'{m:.3f}' for m in ms[name])}; "
+              f"{mbpipe.CLOCK_QUERY} {smi[name]}), "
+              f"{per[name]:.4f} us/band step (x {mbpipe.FRAME_STEPS}: "
+              f"{per[name] * mbpipe.FRAME_STEPS / 1e3:.3f} ms), bound "
+              f"{mbpipe.us_per_step(b_ms, reps, chains, sms):.4f} us "
+              f"({b_by}); x {line}: {k_ms:.3f} ms, bound {l_ms:.3f} ms, "
+              f"plain version {p_ms:.1f} ms, library calls {lib:.2f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "denoise_gan_tpu_torch/csrc/probe_mbpipe.cu",
+            "replaces": "tools/exp_mbpipe.py:40", "launches": 0,
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": l_ms, "bound_by": l_by, "library_ms": lib})
+    one, two = mbpipe.mode_key(1), mbpipe.mode_key(2)
+    aligned, offset = (per[mbpipe.mode_key(2, s)] for s in ("aligned",
+                                                             "offset"))
+    print(f"    gain t1/t2 {per[one] / per[two]:.3f}x; aligned/offset "
+          f"{aligned / offset:.3f}x")
+    return entries
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -1563,12 +1676,13 @@ def main() -> None:
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
-          f"(K, {int8_chain.M}), K8, K10, K7 and K4 at the JAX shapes, K10 "
-          "also at a 4K frame):")
+          f"(K, {int8_chain.M}), K8, K10, K7, K4 and K5 at the JAX shapes, "
+          "K10 also at a 4K frame):")
     probe_errs = {**k9_vs_plain(dev), **k6_vs_plain(dev), **k8_vs_plain(dev),
                   **k10_vs_plain(dev)}
     k7_errs, k7_plain = k7_vs_plain(dev)
     k4_errs, k4_plain = k4_vs_plain(dev)
+    k5_errs = k5_vs_plain(dev)
 
     # ---- phase 4 / 4b: the main paths, 1080p -> 4K
     frames = [seeded_frame(rng, HEIGHT, WIDTH, dev) for _ in range(2)]
@@ -1613,7 +1727,8 @@ def main() -> None:
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
     probes = probe_times(dev, smi, probe_errs) + k8_k10_times(
         dev, probe_errs) + k7_k4_times(dev, {**k7_errs, **k4_errs},
-                                       {**k7_plain, **k4_plain})
+                                       {**k7_plain, **k4_plain}) + \
+        k5_times(dev, k5_errs)
 
     kernels = []
     for fam in FAMILIES:

@@ -37,7 +37,8 @@ _MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # transpose chain (x, out, rows, cols, iters, c, stream); K10's u8 store
 # (res, out, bands, stream); K7's overlap chains (w, y, z, iters, mma, vpu,
 # c1, c2, stream); K4's depthwise chain (e, w, d, nch, reps, form, cu,
-# stream)
+# stream); K5's band steps (r, we, wp, wdw, e, d, p, bands, chains, sync,
+# reps, bias, cu, stream)
 _PROBE_FMA_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _PROBE_ROLL_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
@@ -53,6 +54,8 @@ _PROBE_OVERLAP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _PROBE_DW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_float, ctypes.c_void_p]
+_PROBE_MBPIPE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
@@ -62,7 +65,8 @@ ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_probe_transpose_chain": _PROBE_TRANSPOSE_ARGS,
                 "dgt_probe_u8_store": _PROBE_U8_ARGS,
                 "dgt_probe_overlap": _PROBE_OVERLAP_ARGS,
-                "dgt_probe_dw": _PROBE_DW_ARGS}
+                "dgt_probe_dw": _PROBE_DW_ARGS,
+                "dgt_probe_mbpipe": _PROBE_MBPIPE_ARGS}
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 

@@ -21,6 +21,11 @@ card at the JAX probe's shapes.  No frame path runs them.
 * ``dw_forms``: tools/exp_dw_forms.py (K4), a chained 3x3 depthwise on a
   192-channel band in four forms (rolled copies, rolls as addresses, a
   register window with shuffles, weight planes).
+* ``mbpipe``: tools/exp_mbpipe.py (K5), one inverted-residual band step
+  (expand and project on tensor cores, the depthwise on CUDA cores), one
+  chain against two chains on separate warps of a CTA, with their own
+  barriers or one barrier with their phases aligned or offset: whether
+  the two units overlap on separate warps.
 
 Run each with ``python -m denoise_gan_tpu_torch.probes.<name>`` on a CUDA
 GPU.

@@ -1,5 +1,6 @@
-"""What is read from the card: its nvidia-smi name and power limit, its FP32
-peak, and CUDA-event timings (chip_smoke.py and the probes)."""
+"""What is read from the card: its nvidia-smi name and power limit (and
+clocks or power read while kernels run), its FP32 peak, and CUDA-event
+timings (chip_smoke.py and the probes)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,18 @@ def smi(query: str, index: int = 0) -> str:
         ["nvidia-smi", "-i", str(index), f"--query-gpu={query}",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def smi_during(fn: Callable[[], object], query: str, index: int = 0) -> str:
+    """``smi(query, index)`` read while the kernels that fn() enqueues run:
+    their device time must outlast nvidia-smi's start (a few tenths of a
+    second)."""
+    torch.cuda.synchronize()
+    fn()
+    try:
+        return smi(query, index)
+    finally:
+        torch.cuda.synchronize()
 
 
 def fp32_peak(device: torch.device) -> tuple[float, int, float]:

@@ -309,3 +309,42 @@ def test_probe_dw_matches_plain(port, form, reps, nch):
 def test_probe_dw_refuses_on_card(port, bad):
     with pytest.raises(ValueError):
         port("probe_dw_bad_input", bad, device="cuda")
+
+
+# K5 (probes/mbpipe.py), in every mode (one chain; two chains with their
+# own barriers, or one barrier with the phases aligned or offset): the last
+# step of a launch against the plain version's pieces from the kernel's own
+# bands one step earlier (mbpipe.check): E and p within
+# expand_bound and project_bound (tensor-core f32 sums in the hardware's
+# order), D bit-identical to the depthwise of the kernel's own E, and the
+# new bands bit-identical to the update from the kernel's own p; at 1, 2
+# and 37 steps from the probe's state, and from a seeded state of three
+# bands (both chains move there), each band equal to that band alone.
+
+MB_MODES = [(1, "own"), (2, "own"), (2, "aligned"), (2, "offset")]
+
+
+@pytest.mark.parametrize("reps", [1, 2, 37])
+@pytest.mark.parametrize("mode", MB_MODES, ids=lambda m: f"{m[0]}-{m[1]}")
+def test_probe_mbpipe_matches_plain(port, mode, reps):
+    r = port("cuda_probe_mbpipe", reps, *mode)
+    print(r)
+    assert r["launches"] == 1 and r["d_equal"] and r["r_equal"], r
+    assert r["e_ratio"] <= 1 and r["p_ratio"] <= 1, r
+
+
+@pytest.mark.parametrize("reps", [1, 2, 37])
+@pytest.mark.parametrize("mode", MB_MODES, ids=lambda m: f"{m[0]}-{m[1]}")
+def test_probe_mbpipe_seeded_bands_match_plain(port, mode, reps):
+    r = port("cuda_probe_mbpipe", reps, *mode, seed=reps, bands=3)
+    print(r)
+    assert r["launches"] == 1 and r["d_equal"] and r["r_equal"], r
+    assert r["e_ratio"] <= 1 and r["p_ratio"] <= 1 and r["bands_equal"], r
+
+
+@pytest.mark.parametrize("bad", ["dtype", "r_shape", "w_shape", "wdw_dtype",
+                                 "chains", "reps", "sync", "bands",
+                                 "contiguous", "device"])
+def test_probe_mbpipe_refuses_on_card(port, bad):
+    with pytest.raises(ValueError):
+        port("probe_mbpipe_bad_input", bad, device="cuda")

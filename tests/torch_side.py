@@ -31,6 +31,7 @@ from denoise_gan_tpu_torch.ops import tail_srgan as ttail_srgan
 from denoise_gan_tpu_torch.probes import dw_forms as tdw
 from denoise_gan_tpu_torch.probes import fma_peak as tfma
 from denoise_gan_tpu_torch.probes import int8_chain as tdot
+from denoise_gan_tpu_torch.probes import mbpipe as tmb
 from denoise_gan_tpu_torch.probes import overlap as tov
 from denoise_gan_tpu_torch.probes import relayout as trel
 from denoise_gan_tpu_torch.probes import u8_store as tu8
@@ -1179,3 +1180,119 @@ def cuda_probe_dw(nch, reps, form):
     return dict(launches=launches, shapes=(tuple(ge.shape), tuple(gd.shape)),
                 equal=torch.equal(ge, we) and torch.equal(gd, wd),
                 max_diff=float((gd - wd).abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# probes/mbpipe.py (K5)
+
+def _mb_state(r1, r2, we, wp, wdw):
+    return (_bf16(r1), _bf16(r2), _bf16(we), _bf16(wp), torch.from_numpy(wdw))
+
+
+def probe_mbpipe_initial_state():
+    """mbpipe.initial_state on the CPU, as numpy (bf16 as f32)."""
+    return tuple(_np(t) for t in tmb.initial_state("cpu"))
+
+
+def probe_mbpipe_chain(r1, r2, we, wp, wdw, reps, chains):
+    """mbpipe.mbpipe_chain on the CPU (its wrapper runs the plain version
+    there) from numpy arrays holding bf16 values (wdw f32): (r1, r2, e, d,
+    p) as numpy."""
+    with _one_thread():
+        return tuple(_np(t) for t in tmb.mbpipe_chain(
+            _mb_state(r1, r2, we, wp, wdw), reps, chains))
+
+
+def probe_mbpipe_wrapper_on_cpu():
+    """The K5 wrapper on CPU tensors against its plain version in every
+    mode, on the probe's state and on a seeded state of two bands:
+    whether they are equal, and the kernel's launch counts they added."""
+    with _one_thread():
+        before = dict(tmb.launch_counts)
+        equal = {}
+        for name, state in (("probe", tmb.initial_state("cpu")),
+                            ("seeded", tmb.seeded_state(0, 2, "cpu"))):
+            for chains, sync in tmb.MODES:
+                got = tmb.mbpipe_chain(state, 1, chains, sync)
+                want = tmb.mbpipe_chain_reference(state, 1, chains)
+                equal[f"{name}:{tmb.mode_key(chains, sync)}"] = all(
+                    map(torch.equal, got, want))
+        return equal, {k: tmb.launch_counts[k] - before[k]
+                       for k in before}
+
+
+def probe_mbpipe_seeded_bands(chains):
+    """The plain version on a seeded state of three bands against each
+    band alone: whether every output agrees, and the share of each
+    chain's window that moved (so chain 2 is no fixed point there)."""
+    with _one_thread():
+        state = tmb.seeded_state(1, 3, "cpu")
+        r1, r2, *w = state
+        banded = tmb.mbpipe_chain_reference(state, 1, chains)
+        same = True
+        for b in range(3):
+            one = tmb.mbpipe_chain_reference((r1[b], r2[b], *w), 1, chains)
+            same &= all(torch.equal(x[b], y) for x, y in zip(banded, one))
+        win = slice(tmb.CHUNK, tmb.CHUNK + tmb.MP)
+        moved = [float((banded[q][..., win] != state[q][..., win]).float()
+                       .mean()) for q in range(2)]
+        return same, moved
+
+
+def probe_mbpipe_entry_points_without_gpu():
+    """The K5 card entry points where torch.cuda.is_available() is False:
+    the exception type each raised, or None."""
+    calls = {"mbpipe.main": tmb.main, "mbpipe.measure": tmb.measure,
+             "mbpipe.clocks": tmb.clocks,
+             "mbpipe.yardstick_ms": tmb.yardstick_ms,
+             "mbpipe.initial_state": tmb.initial_state,
+             "mbpipe.seeded_state": lambda: tmb.seeded_state(0),
+             "mbpipe.check": lambda: tmb.check(tmb.initial_state("cpu"), 1,
+                                               1)}
+    raised = {}
+    with _no_cuda():
+        for name, fn in calls.items():
+            try:
+                fn()
+                raised[name] = None
+            except Exception as e:  # noqa: BLE001 - reported to the test
+                raised[name] = type(e).__name__
+    return raised
+
+
+def probe_mbpipe_bad_input(bad, device="cpu"):
+    """mbpipe_chain on input it does not take; raises.  Everywhere: f32
+    r1, r2 narrower than 2176, wp of the wrong shape, f64 wdw, 3 chains,
+    reps 0, r1 with a band axis and r2 without; on the card also a
+    non-contiguous we and wdw on the CPU; one chain with a sync of two."""
+    state = list(tmb.initial_state(device))
+    reps, chains, sync = 1, 2, "own"
+    if bad == "dtype":
+        state[0] = state[0].float()
+    elif bad == "r_shape":
+        state[1] = state[1][:, :2048]
+    elif bad == "w_shape":
+        state[3] = state[3][:, :16]
+    elif bad == "wdw_dtype":
+        state[4] = state[4].double()
+    elif bad == "chains":
+        chains = 3
+    elif bad == "reps":
+        reps = 0
+    elif bad == "sync":
+        chains, sync = 1, "offset"
+    elif bad == "bands":
+        state[0] = state[0][None]
+    elif bad == "contiguous":
+        state[2] = state[2].t().contiguous().t()
+    elif bad == "device":
+        state[4] = state[4].cpu()
+    tmb.mbpipe_chain(tuple(state), reps, chains, sync)
+
+
+def cuda_probe_mbpipe(reps, chains, sync="own", seed=None, bands=None):
+    """K5's kernel in one mode on the card at `reps` steps from the probe's
+    initial state (or seeded_state(seed, bands)), held by mbpipe.check."""
+    state = tmb.initial_state("cuda") if seed is None else \
+        tmb.seeded_state(seed, bands, "cuda")
+    return tmb.check(state, reps, chains, sync)
