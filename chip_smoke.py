@@ -16,7 +16,24 @@ Phases, each printed on its own line:
    than bytes).  w8a8 u8 must be bit-identical; for qh8 and the int8
    canvases bit-identity is the target, and each line says if it held.
 3b. K2 vs twin: the SRGAN fused tail kernel (csrc/tail_srgan.cu) the same
-   way, at h (128, 139, 124, 64).
+   way, at h (128, 139, 124, 64); w8a8 bit-identical as in K1 (the kernel
+   sums up1 on the tensor cores and again, in the twin's order, where that
+   leaves u1's rounding uncertain).  Then K2's build: each instantiation's
+   IMMA and HMMA counts in its SASS (cuobjdump; the run fails if a mode's
+   products, HMMA for bf16 and w8a8's up1, IMMA for the int8 ones, count
+   0), its registers and spills (ptxas), dynamic shared memory and
+   resident blocks an SM; and w8a8 on the exact-sum input at 1080p
+   (ops/tail_srgan.py::dyadic_up1_ on a copy of the seeded tail, dyadic_h:
+   every f32 partial sum of up1 exact in any order), u8 and canvas,
+   bit-identical to the twin.  Then why K2 repairs u1: the largest
+   distance, relative to |x| |w|, of f32 sums of SUM_K bf16 products from
+   the exact sum, for bf16 mma.sync (K8's product kernel, relayout.py's
+   seeded operands, 2048 x 128 sums) and for the twin's one-at-a-time
+   order, on inputs of both signs and of one sign; the two together must
+   stay below K2's margin K2_UP1_ERR.  And (printed) how far the twin's
+   frame moves when up1 is summed exactly (float64, rounded once) instead
+   of in its order: w8a8 u8 and the bf16 canvas at 1080p, against the
+   kernel-vs-twin bounds.
 3c. K3 vs its plain version: the fused inverted residual (csrc/mbconv.cu)
    at the 1080p body shape x (128, 139, 124, 32) bf16, with and without
    the expand, on the seeded FSRGAN blocks (non-zero BN statistics, so
@@ -186,6 +203,7 @@ is the kernels' JSON record, the last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import json
 import time
 from dataclasses import dataclass
@@ -233,6 +251,11 @@ SRGAN_BODY_GAIN = 0.1
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
+# phase 3b: K2's up1 margin (csrc/tail_srgan.cu, ERR): the kernel keeps a
+# tensor-core u1 value only where every sum within K2_UP1_ERR * |x| |w| of
+# it rounds alike; SUM_K is up1's depth, 9 taps x 64 channels
+K2_UP1_ERR = 2.0 ** -18
+SUM_K = 576
 # phase 3d: K6 bf16 checked step by step for BF16_STEPS steps (then the
 # chain overflows on its way to inf and NaN), the random states for
 # RANDOM_STEPS
@@ -559,6 +582,104 @@ def kernel_vs_twin(label: str, fam: Family, model, dev):
         errs[fam.key(fam.canvas, mode)] = check_canvas(
             f"canvas {mode}", got, want, target=mode != "bf16")
     return inputs, (ny, nx, cr), tails, errs
+
+
+def k2_build_and_exact_sums(model, dev) -> None:
+    """Phase 3b, K2's build (its SASS product counts, ptxas registers and
+    spills, shared memory and blocks an SM per instantiation) and w8a8 on
+    the exact-sum input at 1080p, u8 and canvas, bit-identical to the
+    twin."""
+    products = {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"),
+                "qh8": ("IMMA",)}
+    sass = tail_srgan.sass_counts()
+    ptxas = tail_srgan.ptxas_report()
+    for mode in MODES:
+        for canvas in (False, True):
+            key = (mode, canvas)
+            smem, blocks = tail_srgan.occupancy(mode, canvas)
+            print(f"  tail64_kernel<{mode}, {'canvas' if canvas else 'u8'}>:"
+                  f" SASS {sass.get(key)}, ptxas {ptxas.get(key)}, shared "
+                  f"memory {smem} bytes, {blocks} blocks an SM")
+            if not all(sass.get(key, {}).get(op) for op in products[mode]):
+                raise AssertionError(f"tail64_kernel<{mode}> runs no "
+                                     f"{'/'.join(products[mode])}: "
+                                     f"{sass.get(key)}")
+    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
+    gen = torch.Generator().manual_seed(SEED)
+    tail = tail_srgan.dyadic_up1_(copy.deepcopy(model.tail), gen)
+    h = tail_srgan.dyadic_h((ny * nx, cr + 4, tail_ops.T, tail_srgan.CIN),
+                            gen, dev)
+    tw = tail_srgan.prepare_tail64(tail, q8_calib=h[:16])
+    for kernel, twin in ((tail_srgan.fused_tail64_u8,
+                          tail_srgan.fused_tail64_u8_reference),
+                         (tail_srgan.fused_tail64_canvas,
+                          tail_srgan.fused_tail64_canvas_reference)):
+        args = (h, tw, ny, nx, HEIGHT, WIDTH)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        same, d_max = same_bits(got.float(), twin(*args).float())
+        print(f"  {kernel.__name__} w8a8 on the exact-sum input: "
+              f"{'bit-identical' if same else f'max |d| {d_max}'}")
+        if not same:
+            raise AssertionError(f"{kernel.__name__} w8a8 differs from its "
+                                 f"twin on the exact-sum input")
+
+
+def up1_sum_errors(dev) -> None:
+    """Phase 3b: f32 sums of SUM_K bf16 products, by mma.sync (K8's
+    product) and one at a time in the twin's order, against the exact sum,
+    relative to |x| |w|; their sum must stay below K2_UP1_ERR."""
+    rng = np.random.default_rng(SEED)
+    for name, one_sign in (("both signs", False), ("one sign", True)):
+        x, w = relayout.seeded_operands(2048, SUM_K, 128, "canonical", dev,
+                                        rng)
+        if one_sign:
+            x, w = x.abs(), w.abs()
+        _, tc = relayout.matmul_form(x, w, "canonical", 1)
+        seq = torch.zeros_like(tc)
+        xf, wf = x.float(), w.float()
+        for k in range(SUM_K):
+            seq.addcmul_(xf[:, k:k + 1], wf[k:k + 1])
+        exact = x.double() @ w.double()
+        norm = x.double().norm(dim=1, keepdim=True) * \
+            w.double().norm(dim=0, keepdim=True)
+        e_tc, e_seq = (float(((v.double() - exact).abs() / norm).max())
+                       for v in (tc, seq))
+        print(f"  up1 sums of {SUM_K} bf16 products, {name}: mma.sync "
+              f"{e_tc:.3e}, the twin's order {e_seq:.3e} of |x| |w|; K2's "
+              f"margin {K2_UP1_ERR:.3e} = {K2_UP1_ERR / (e_tc + e_seq):.1f}x "
+              f"their sum")
+        if e_tc + e_seq >= K2_UP1_ERR:
+            raise AssertionError(f"f32 sum errors ({name}) reach K2's up1 "
+                                 f"margin")
+
+
+def exactly_rounded_up1(fam: Family, inputs, grid, tails) -> None:
+    """Phase 3b (printed): the twin's frame with up1 summed in float64 and
+    rounded once against the twin's own, w8a8 u8 and bf16 canvas: how far
+    an order other than the twin's moves the frame."""
+    ny, nx, _ = grid
+
+    def exact(x, w1):
+        return torch.nn.functional.conv2d(x.double(), w1.double(),
+                                          padding=1).float()
+
+    for mode, twin, diff in (("w8a8", fam.twin, u8_diff),
+                             ("bf16", fam.canvas_twin, None)):
+        args = (inputs[mode], tails[mode], ny, nx, HEIGHT, WIDTH)
+        want = twin(*args)
+        summed, tail_ops._up1_sum = tail_ops._up1_sum, exact
+        try:
+            got = twin(*args)
+        finally:
+            tail_ops._up1_sum = summed
+        if diff:
+            d_max, frac = diff(got, want)
+        else:
+            d = (got.float() - want.float()).abs()
+            d_max, frac = float(d.max()), float((d > 0).float().mean())
+        print(f"  {twin.__name__}:{mode} with up1 exactly rounded vs in the "
+              f"twin's order: max {d_max:.4g}, differing {frac:.3e}")
 
 
 def k3_vs_plain(model, dev):
@@ -1673,6 +1794,10 @@ def main() -> None:
     # ---- phase 3 / 3b / 3c: kernels vs twins at the main-path shapes
     checked = {f.name: kernel_vs_twin(label, f, models[f.name], dev)
                for label, f in zip(("3", "3b"), FAMILIES)}
+    k2_build_and_exact_sums(models["srgan"], dev)
+    up1_sum_errors(dev)
+    exactly_rounded_up1(FAMILIES[1], checked["srgan"][0], checked["srgan"][1],
+                        checked["srgan"][2])
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "

@@ -17,38 +17,85 @@
 //
 // What bounds it on the H100: arithmetic.  A 1080p frame (128 tiles of
 // 139x124) needs ~1.54 T multiply-adds (up1 0.31 T, up2 1.22 T, the 1x1
-// conv 6 G), ~1.8 T with this blocking's recomputed up1 halo, while it
-// moves only the 282 MB of bf16 h (141 MB int8) in and the 100 MB of u8
-// (199 MB of bf16 canvas) out (~0.11 ms at 3.35 TB/s).  So, as in tail.cu,
-// every intermediate stays on chip and the time goes to the two 3x3
-// convolutions, here on the CUDA cores: f32 FMAs on bf16 operands, __dp4a
-// for the int8 products.  Each lane owns 4 output channels and each warp a
-// set of positions, so one broadcast 16-byte shared load feeds 32
-// multiply-adds.  What differs from tail.cu:
-// * The output conv is 1x1, so R needs no halo and no shared memory.  In
-//   up2's epilogue a lane holds R for 4 channels of one fine pixel (16
-//   lanes hold its 64), takes its part of the 64->3 dot and the 16 lanes
-//   add their parts with warp shuffles (integers in the int8 modes: exact
-//   in any order).
-// * 256 conv outputs: the block runs up1 and up2 once per 128-channel
-//   half, a lane owning 4 channels of the half.
-// * W1 and W2 (576 x 256: 295 KB each in bf16, 147 KB in int8) exceed
-//   shared memory; each lane reads its 4 columns through L1/L2, once per 8
-//   (bf16) or 16 (int8) input channels, and uses them at 9-10 positions.
-// Tensor-core products (mma.sync, wgmma) are later work.
-//
-// Block = (column chunk of BC core cols, band of BR core rows, tile):
-//   stage 0: h patch (BR+4) x (BC+4) x 64 -> smem (zero outside the tile),
-//            output-conv weights -> smem
-//   stage 1: up1 at (BR+2) x (BC+2) coarse positions, 256 channels, + b1
-//            (qh8: int32 * s1 + b1), PReLU; stored bf16 (bf16 mode) or
-//            int8 = q(u1 / su1) (w8a8, qh8)
-//   stage 2: up2 at 2BR x 2BC positions of the 2x grid, 256 channels, + b2
-//            (or int32 * s2 + b2), PReLU -> R, bf16 or q(R / sr) -> 1x1
-//            conv + b3 (or int32 * s3 + b3), tanh, bf16 rounding;
-//            u8 = trunc(clip((v+1)*127.5+0.5)), or the bf16 value (canvas).
+// conv 6 G) while it moves only the 282 MB of bf16 h (141 MB int8) in and
+// the 100 MB of u8 (199 MB of bf16 canvas) out (~0.11 ms at 3.35 TB/s).
+// The CUDA cores top out near 31 T FFMA/s on this card, so only the tensor
+// cores reach the bound.  The kernel is two implicit GEMMs a block, every
+// intermediate on chip:
+// * M = positions, N = the 256 conv outputs (channel q = (a*2+b)*64 + t
+//   goes to depth_to_space phase (a, b), channel t), K = 9 taps x 64
+//   channels = 576.  up1's A rows are h patch pixels, up2's are u1 rows
+//   gathered through the depth_to_space addressing (one address a row, so
+//   the gather costs nothing over a dense operand).
+// * Products: int8 mma.sync m16n8k32 with int32 sums (exact in any order)
+//   where both operands are int8 (qh8's up1; up2 in w8a8 and qh8), bf16
+//   m16n8k16 with f32 sums otherwise (up1 in bf16 and w8a8, up2 in bf16).
+// * A warp's tile is MT = 2 m16 tiles x one 64-column phase slab (8 n8
+//   tiles): 64 sums a lane.  A GEMM is 4 slab passes (up2: x 2 M passes),
+//   each a cycle over the 9 taps.  A slab holds all 64 channels of one
+//   phase, so up2's epilogue finishes R for its fine pixels and runs the
+//   1x1 conv.
+// * Weights (576 x 256: 147 KB int8, 295 KB bf16) do not fit beside the
+//   activations; one tap's 64 x 64 slice of the slab (4 KB int8, 8 KB
+//   bf16) streams by cp.async into an NST-stage shared ring that the 8
+//   warps share, one barrier a tap, NST - 1 slices in flight.
+// * Fragments: A by ldmatrix.x4 (an 8x8 b16 matrix is 8 pixels x 16 bytes,
+//   the int8 m16n8k32 A layout as well); bf16 B by ldmatrix.x4.trans from
+//   [k][n] rows; int8 B by ld.shared.v4 from the (144, 256, 4) packing,
+//   which is the m16n8k32 B fragment already (word [k/4][n]): the slab's
+//   columns are permuted among the n8 tiles (tile j's column g is channel
+//   8g + j), so lane (g, t) takes words n = 8g..8g+7 of a row in two
+//   16-byte loads and ends up holding channels 16t..16t+15.  A k-step runs
+//   as two halves of 4 n8 tiles; the next half's B (and, before a k-step,
+//   its A) loads before this half's mma.syncs, written out by hand.
+// * Bank conflicts: every shared row is 16-byte chunks, the chunk index
+//   XORed with bits of the row (h: the pixel; u1: the position and phase;
+//   weights: k or k/4), so the 8 rows of an ldmatrix or the 8 lanes of a
+//   16-byte load fall on 8 different chunks of the 128-byte bank row.
+// * Epilogues in the accumulator's layout.  up1: dequant (qh8) or + b1,
+//   PReLU, stored int8 q(u1 / su1) (w8a8, qh8) or bf16.  up2: dequant or
+//   + b2, PReLU -> R, then the 64->3 conv on the CUDA cores over the lane's
+//   16 channels (__dp4a on q(R / sr), or fmaf on bf16(R)), the quad's 4
+//   lanes summed by shuffles (integers in the int8 modes: exact in any
+//   order), + b3 (or int32 * s3 + b3), tanh, bf16 rounding; u8 =
+//   trunc(clip((v+1)*127.5+0.5)), or the bf16 value (canvas).
 // q(x) rounds half to even and clips to +-127; u1 and R are quantised from
 // f32 (tail_srgan.py:239-241, :283).
+//
+// Precision.  The int8 products are exact, so qh8, and w8a8 after up1, sum
+// exactly what the twin sums.  up1 in bf16 and w8a8 sums bf16 products,
+// exact in f32, on the tensor cores in their order; the twin sums them one
+// at a time in K1's order (ops/tail.py::_up1_sum).  The two f32 sums differ
+// in their last bits, and where that moves u1 across an int8 step (w8a8)
+// or a bf16 rounding (bf16), the frame moves by up to 3 u8 levels (on the
+// seeded 1080p weights of chip_smoke.py; an exactly rounded sum moves it as
+// far), past the kernel-vs-twin bound.  So up1's epilogue keeps the
+// tensor-core value only where its rounding is certain, taking both sums to
+// lie within ERR * |x| |w| of the exact one (x the position's 576 inputs,
+// w the channel's W1 column; |x| |w| >= sum |x w| by Cauchy-Schwarz).
+// ERR = 2**-18 (3.8e-6) is a measured margin, not a proof: at K = 576 on
+// the H100 the tensor core's f32 sums of bf16 products (K8's mma.sync
+// product) lay within 1.7e-7 |x| |w| of the exact sum and the twin's order
+// within 9.5e-8 on inputs of both signs, 1.13e-6 and 8.4e-7 where all
+// products have one sign (truncation adds up); chip_smoke.py's phase 3b
+// measures this on every run and fails if the two reach ERR.  The values
+// the margin leaves uncertain (a few % in w8a8, most in bf16, on the
+// seeded weights) are listed in shared memory and summed again in the
+// twin's order by fmaf, RPT a thread, while the slab's 9 weight slices
+// pass through the ring a second time (a repair cycle, at least one a
+// slab; more when there are more than NT * RPT).  u1 then equals the
+// twin's bit for bit.
+//
+// Blocking: a block is BR x BC = 15 x 8 core positions (135 = 9 x 15 rows,
+// 120 = 15 x 8 cols): h patch 19 x 12 pixels, up1 at 17 x 10 = 170
+// positions (1.42x the 120 it feeds; 11 m16 tiles, on 6 of the 8 warps),
+// up2 at 30 x 16 = 480 positions (30 m16 tiles, one row of the 2x grid
+// each).  Shared memory (Layout::total): qh8 78,208 bytes, w8a8 113,280,
+// bf16 170,368 (the repair's list: 4,096 entries in w8a8, a slab's 10,880
+// in bf16).  Registers (ptxas): qh8 and w8a8 128 with 104-136 bytes of
+// stack for spills, under launch bounds for 2 blocks an SM (8 warps more
+// to hide barriers and latency than one block without spills has), bf16
+// 212, one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,8 +111,8 @@ using namespace tail;
 
 constexpr int CIN = 64;            // body channels
 constexpr int C1 = 256;            // up1/up2 conv outputs (4 phases x 64)
-constexpr int HALF = C1 / 2;       // channels a pass of the block covers
-constexpr int BR = 5;              // core rows per block (135 = 27 x 5)
+constexpr int NSLAB = C1 / CIN;    // phase slabs: a GEMM's N passes
+constexpr int BR = 15;             // core rows per block (135 = 9 x 15)
 constexpr int BC = 8;              // core cols per block (120 = 15 x 8)
 constexpr int NT = 256;            // threads per block
 constexpr int NWARP = NT / 32;
@@ -74,30 +121,208 @@ constexpr int HR = BR + 4, HC = BC + 4;          // h patch
 constexpr int UR = BR + 2, UC = BC + 2;          // up1 positions
 constexpr int YR = 2 * BR, YC = 2 * BC;          // up2 positions (2x grid)
 
-constexpr int NP1 = UR * UC;                     // 70
-constexpr int P1 = (NP1 + NWARP - 1) / NWARP;    // 9 per warp
-constexpr int NP2 = YR * YC;                     // 160
-constexpr int P2 = 10;                           // per warp and pass
-constexpr int NPASS2 = (NP2 + NWARP * P2 - 1) / (NWARP * P2);
+constexpr int NP1 = UR * UC;                     // 170
+constexpr int NV1 = NP1 * CIN;                   // u1 values a slab
+constexpr int MT = 2;                            // m16 tiles a warp
+constexpr int TPP = NWARP * MT;                  // m16 tiles a pass
+constexpr int NT1 = (NP1 + 15) / 16;             // 11
+constexpr int NT2 = YR * YC / 16;                // 30
+constexpr int P2 = (NT2 + TPP - 1) / TPP;        // up2's M passes: 2
+constexpr int NST = 3;                           // weight ring stages
+constexpr float ERR = 0x1p-18f;                  // up1's sum error / S
+static_assert(YC == 16, "an up2 m16 tile is one row of the 2x grid");
+static_assert(NT2 % MT == 0, "a warp's up2 tiles are all real or none");
+static_assert(NT1 <= TPP, "up1 runs one M pass");
+static_assert(NV1 < 65536, "a candidate is a 16-bit p * 64 + c");
 
 template <int MODE>
 struct Layout {
-  static constexpr bool Q8 = MODE != BF16;
-  using act_t = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  static constexpr int h_px = MODE == QH8 ? CIN : 2 * CIN;  // bytes per pixel
-  // output-conv weights: int8 modes int32 words [c][16]; bf16 f32 [c][64]
-  static constexpr int w3_bytes = Q8 ? 3 * 16 * 4 : 3 * CIN * 4;
-  static constexpr int h_bytes = HR * HC * h_px;
-  static constexpr int u1_bytes = NP1 * C1 * (int)sizeof(act_t);
-  static constexpr int h_off = w3_bytes;
-  static constexpr int u1_off = h_off + h_bytes;
-  static constexpr int total = u1_off + u1_bytes;
-  static_assert(h_off % 16 == 0 && u1_off % 16 == 0,
-                "16-byte shared loads need aligned buffers");
+  static constexpr bool Q8 = MODE != BF16;       // u1, R, W2 int8
+  static constexpr bool H8 = MODE == QH8;        // h, W1 int8
+  static constexpr bool REPAIR = !H8;            // up1 sums bf16 products
+  static constexpr int RPT = Q8 ? 2 : 8;         // candidates a thread
+  static constexpr int CAP = REPAIR ? (Q8 ? 4096 : NV1) : 0;  // list
+  static constexpr int h_px = H8 ? CIN : 2 * CIN;        // bytes a pixel
+  static constexpr int u_px = Q8 ? C1 : 2 * C1;          // bytes a position
+  static constexpr int stage = H8 ? CIN * CIN : 2 * CIN * CIN;
+  // output-conv weights: int8 modes int32 words [c][16]; bf16 f32 [c][64];
+  // the per-channel constants, f32: b1, s1, b2, s2 (256 each), a1, a2;
+  // the repair's sum h^2 a patch pixel, sum W1^2 a channel (4 row groups,
+  // then the norm), candidate count and repair cycles a slab
+  static constexpr int w3_off = 0;
+  static constexpr int cst_off = 768;
+  static constexpr int pix_off = cst_off + (4 * C1 + 2 * CIN) * 4;
+  static constexpr int col_off = pix_off + 1024;
+  static constexpr int ctl_off = col_off + 5 * CIN * 4;
+  static constexpr int h_off = ctl_off + 128;
+  static constexpr int u_off = h_off + HR * HC * h_px;
+  static constexpr int w_off = u_off + NP1 * u_px;
+  static constexpr int list_off = w_off + NST * stage;
+  static constexpr int total = list_off + (CAP * 2 + 15) / 16 * 16;
+  static_assert(HR * HC * 4 <= 1024, "sum h^2 a pixel fits its block");
+  static_assert(h_off % 128 == 0 && u_off % 128 == 0 && w_off % 128 == 0,
+                "shared buffers start on a bank row");
 };
+// offsets of the constants in the cst block, in floats
+constexpr int CB1 = 0, CS1 = C1, CB2 = 2 * C1, CS2 = 3 * C1, CA1 = 4 * C1,
+              CA2 = 4 * C1 + CIN;
+
+// The XOR applied to a 16-byte chunk index.  h patch pixel P: int8 (4
+// chunks a pixel) bits 1-2 of P, bf16 (8 chunks) P's low 3 bits.
+template <bool H8>
+__device__ __forceinline__ int h_swz(int P) {
+  return H8 ? (P >> 1) & 3 : P & 7;
+}
+// u1 position p, phase slab s: int8 (4 chunks a slab) p's low 2 bits; bf16
+// (8 chunks) those and the slab's column phase.
+template <bool Q8>
+__device__ __forceinline__ int u_swz(int p, int s) {
+  return Q8 ? p & 3 : ((p & 3) << 1) | (s & 1);
+}
+// int8 weight slice row kw (4 k a word row): 0, 1, 4, 5 for kw % 4 = 0..3
+__device__ __forceinline__ int w8_swz(int kw) {
+  return (kw & 1) | ((kw & 2) << 1);
+}
+// element (k, c) of a bf16 weight slice: row k, chunk c/8 ^ (k & 7)
+__device__ __forceinline__ float w16_at(const unsigned char* sl, int k,
+                                        int c) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(
+      sl + k * 128 + (((c >> 3) ^ (k & 7)) << 4) + (c & 7) * 2);
+  return __uint_as_float((uint32_t)v << 16);
+}
+// u1 value v of position p, slab s, channel c: int8 q(v * inv) or bf16
+template <bool Q8>
+__device__ __forceinline__ void put_u1(unsigned char* u1, int p, int s, int c,
+                                       float v, float inv) {
+  unsigned char* row = u1 + p * (Q8 ? C1 : 2 * C1);
+  const int sw = u_swz<Q8>(p, s);
+  if constexpr (Q8)
+    row[(s * 4 + ((c >> 4) ^ sw)) * 16 + (c & 15)] =
+        (unsigned char)(quant(v, inv) & 0xff);
+  else
+    *reinterpret_cast<__nv_bfloat16*>(row + (s * 8 + ((c >> 3) ^ sw)) * 16 +
+                                      (c & 7) * 2) = __float2bfloat16_rn(v);
+}
+
+// One tap's 64 x 64 weight slice of slab `s` into the ring stage at `st`.
+// int8: 16 word rows (4 k each) of 64 words, chunk c of row kw at
+// c ^ w8_swz(kw); bf16: 64 rows k of 64 values, chunk c at c ^ (k & 7).
+template <bool I8>
+__device__ __forceinline__ void load_slice(unsigned st, const void* w, int s,
+                                           int tap, int tid) {
+  const unsigned char* wb = static_cast<const unsigned char*>(w);
+  if constexpr (I8) {
+    static_assert(NT == 16 * 16, "one chunk a thread");
+    const int kw = tid >> 4, c = tid & 15;
+    cp_async16(st + kw * 256 + ((c ^ w8_swz(kw)) << 4),
+               wb + ((size_t)(tap * 16 + kw) * C1 + s * CIN + 4 * c) * 4,
+               true);
+  } else {
+#pragma unroll
+    for (int i = tid; i < CIN * 8; i += NT) {
+      const int k = i >> 3, c = i & 7;
+      cp_async16(st + k * 128 + ((c ^ (k & 7)) << 4),
+                 wb + ((size_t)(tap * CIN + k) * C1 + s * CIN + 8 * c) * 2,
+                 true);
+    }
+  }
+}
+
+// The warp's products for one tap: acc[m][j] += A_m . B_j over the tap's 64
+// k, for its MT m16 tiles (A row addresses arow, chunk XORs asw; the lane's
+// row already in arow) and the 8 n8 tiles of the slice at `st`.  `csel` is
+// the lane's k-chunk within a k-step (ldmatrix matrices 2, 3), `boff` its
+// B offsets: int8 the 16-byte words of row kw = t at chunks 2g (boff0) and
+// 2g + 1 (boff1), bf16 its ldmatrix row k (boff0) and chunk XOR (bsw).
+// Each k-step runs as two halves of 4 n8 tiles; the next half's fragments
+// load before this half's mma.syncs.
+template <bool I8, typename acc_t>
+__device__ __forceinline__ void mma_tap(acc_t (&acc)[MT][8][4],
+                                        const unsigned (&arow)[MT],
+                                        const int (&asw)[MT], unsigned st,
+                                        int csel, unsigned boff0,
+                                        unsigned boff1, int bsw) {
+  constexpr int G = 2 * (I8 ? 2 : 4);  // halves of k-steps of 32 or 16
+  uint32_t a[2][MT][4], b[2][4][2];
+  auto load = [&](int gi) {
+    const int ks = gi >> 1, hf = gi & 1;
+    if (hf == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        ldsm_x4(a[ks & 1][m], arow[m] + (((2 * ks + csel) ^ asw[m]) << 4));
+    }
+    if constexpr (I8) {
+      // rows kw = 8ks + t (b0) and 8ks + 4 + t (b1), words 8g + 4hf..
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t w[4];
+        lds128(w, st + ks * 2048 + r * 1024 + (hf ? boff1 : boff0));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[gi & 1][j][r] = w[j];
+      }
+    } else {
+      // rows k = 16ks + (lane's row), chunks 2jp + csel: b0, b1 of tiles
+      // 2jp and 2jp + 1
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, st + ks * 2048 + boff0 +
+                             (((2 * (2 * hf + jp) + csel) ^ bsw) << 4));
+        b[gi & 1][2 * jp][0] = r[0];
+        b[gi & 1][2 * jp][1] = r[1];
+        b[gi & 1][2 * jp + 1][0] = r[2];
+        b[gi & 1][2 * jp + 1][1] = r[3];
+      }
+    }
+  };
+  load(0);
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi + 1 < G) load(gi + 1);
+    const int ks = gi >> 1, hf = gi & 1;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (I8)
+          mma_s8(acc[m][4 * hf + j], a[ks & 1][m], b[gi & 1][j][0],
+                 b[gi & 1][j][1]);
+        else
+          mma_bf16(acc[m][4 * hf + j], a[ks & 1][m], b[gi & 1][j][0],
+                   b[gi & 1][j][1]);
+      }
+  }
+}
+
+template <typename acc_t>
+__device__ __forceinline__ void zero(acc_t (&acc)[MT][8][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
+}
+
+// Whether every u1 within dv of v = prelu(z, a) rounds as v does: to one
+// int8 step q(v * inv) (Q8; x = v * inv, the half-integers are the steps'
+// boundaries) or to one bf16 value.  The slack covers the roundings of
+// v * inv and v +- dv themselves.
+template <bool Q8>
+__device__ __forceinline__ bool certain(float v, float dv, float inv) {
+  if constexpr (Q8) {
+    const float x = __fmul_rn(v, inv);
+    const float dx = dv * inv * (1.f + 0x1p-20f) + fabsf(x) * 0x1p-22f;
+    return fabsf(x - rintf(x)) < 0.5f - dx;
+  } else {
+    const float d = dv + fabsf(v) * 0x1p-22f;
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v - d)) ==
+           __bfloat16_as_ushort(__float2bfloat16_rn(v + d));
+  }
+}
 
 template <int MODE, bool CANVAS>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, MODE == BF16 ? 1 : 2)
 tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
               const void* __restrict__ w1v, const float* __restrict__ b1,
               const float* __restrict__ a1, const void* __restrict__ w2v,
@@ -107,278 +332,437 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
               const float* __restrict__ s3, float inv_su1, float inv_sr,
               int nx, int core_rows, int height, int width, int bgr) {
   using L = Layout<MODE>;
-  using act_t = typename L::act_t;
+  constexpr bool Q8 = L::Q8, H8 = L::H8, REPAIR = L::REPAIR;
   using out_t =
       typename std::conditional<CANVAS, __nv_bfloat16, uint8_t>::type;
-  constexpr bool Q8 = L::Q8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  act_t* u1s = reinterpret_cast<act_t*>(smem + L::u1_off);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* cst = reinterpret_cast<float*>(smem + L::cst_off);
+  float* pix_sq = reinterpret_cast<float*>(smem + L::pix_off);
+  float* colsq = reinterpret_cast<float*>(smem + L::col_off);
+  int* ctl = reinterpret_cast<int*>(smem + L::ctl_off);
+  uint16_t* list = reinterpret_cast<uint16_t*>(smem + L::list_off);
+  unsigned char* u1s = smem + L::u_off;
   out_t* out = static_cast<out_t*>(outv);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.x * BC;   // first core col (core coords)
   const int r0 = blockIdx.y * BR;   // first core row
   const int n = blockIdx.z;
   const int tr = core_rows + 4;
+  const unsigned s_h = smem_addr(smem + L::h_off);
+  const unsigned s_u = smem_addr(u1s);
+  const unsigned s_w = smem_addr(smem + L::w_off);
 
-  // ---- stage 0: output-conv weights and the h patch (tile rows r0.., cols
-  // c0..) into shared memory
+  // ---- stage 0: the h patch (tile rows r0.., cols c0..; zero outside the
+  // tile) and the first weight slices by cp.async; the output-conv weights,
+  // per-channel constants and repair counters by plain stores
+  {
+    constexpr int CH = L::h_px / 16;
+    const unsigned char* hn = h + (size_t)n * tr * T * L::h_px;
+    for (int i = tid; i < HR * HC * CH; i += NT) {
+      const int P = i / CH, c = i % CH;
+      const int y = r0 + P / HC, x = c0 + P % HC;
+      const bool ok = y < tr && x < T;
+      cp_async16(s_h + P * L::h_px + ((c ^ h_swz<H8>(P)) << 4),
+                 ok ? hn + ((size_t)y * T + x) * L::h_px + c * 16 : hn, ok);
+    }
+  }
+  // The ring's loader walks the block's slice sequence NST - 1 steps ahead
+  // of the products: up1 slab s takes 1 + ctl[1 + s] cycles of the 9 taps
+  // (the tensor-core cycle, then the repair cycles, whose number the slab's
+  // epilogue sets; until then it reads 1, and the loader asks only after
+  // the first repair cycle), up2 slab s P2 cycles.
+  int l_gemm = 0, l_slab = 0, l_cyc = 0, l_tap = 0;
+  auto load_next = [&](int q) {     // the slice that step q will use
+    if (l_gemm == 2) return;
+    const unsigned st = s_w + (q % NST) * L::stage;
+    if (l_gemm == 0) load_slice<H8>(st, w1v, l_slab, l_tap, tid);
+    else load_slice<Q8>(st, w2v, l_slab, l_tap, tid);
+    if (++l_tap < 9) return;
+    l_tap = 0;
+    const int cycles = l_gemm ? P2 : REPAIR ? 1 + ctl[1 + l_slab] : 1;
+    if (++l_cyc < cycles) return;
+    l_cyc = 0;
+    if (++l_slab < NSLAB) return;
+    l_slab = 0;
+    ++l_gemm;
+  };
+  if (tid <= NSLAB) ctl[tid] = tid ? 1 : 0;
+#pragma unroll
+  for (int q = 0; q < NST - 1; ++q) {
+    load_next(q);
+    cp_async_commit();
+  }
   if constexpr (Q8) {
     const int* w3 = static_cast<const int*>(w3v);            // (3, 16)
-    int* w3s = reinterpret_cast<int*>(smem);
+    int* w3s = reinterpret_cast<int*>(smem + L::w3_off);
     for (int i = tid; i < 3 * 16; i += NT) w3s[i] = w3[i];
   } else {
     const __nv_bfloat16* w3 = static_cast<const __nv_bfloat16*>(w3v);
-    float* w3s = reinterpret_cast<float*>(smem);             // (3, 64)
+    float* w3s = reinterpret_cast<float*>(smem + L::w3_off);  // (3, 64)
     for (int i = tid; i < 3 * CIN; i += NT)
       w3s[i] = __bfloat162float(w3[(i % CIN) * 3 + i / CIN]);
   }
-  load_patch<L::h_px, HR, HC>(h + (size_t)n * tr * T * L::h_px,
-                              reinterpret_cast<uint4*>(smem + L::h_off), r0,
-                              c0, tr, tid, NT);
-  __syncthreads();
+  for (int i = tid; i < C1; i += NT) {
+    cst[CB1 + i] = b1[i];
+    cst[CB2 + i] = b2[i];
+    if constexpr (H8) cst[CS1 + i] = s1[i];
+    if constexpr (Q8) cst[CS2 + i] = s2[i];
+  }
+  for (int i = tid; i < CIN; i += NT) {
+    cst[CA1 + i] = a1[i];
+    cst[CA2 + i] = a2[i];
+  }
 
-  // ---- stage 1: up1 at U1 position (i, j) = tile (r0+1+i, c0+1+j), reading
-  // h patch (i+dy, j+dx).  Lane: channels o..o+3 of the half; warp:
-  // positions warp+8m.  Sums run tap-major, then input channel, as the
-  // twin's _up1_sum, so w8a8 quantises the same u1 (qh8's integer sums are
-  // exact in any order).
-#pragma unroll 1
-  for (int half = 0; half < 2; ++half) {
-    const int o = half * HALF + lane * 4;
-    if constexpr (MODE == QH8) {
-      const int8_t* hs = reinterpret_cast<const int8_t*>(smem + L::h_off);
-      const int* w1 = static_cast<const int*>(w1v);          // (144, 256)
-      int acc[P1][4];
+  // Step q waits for slice q, then (after the barrier, so no warp still
+  // reads the stage) starts slice q + NST - 1 into the stage of q - 1.
+  auto step = [&](int q) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();
+    load_next(q + NST - 1);
+    cp_async_commit();
+  };
+
+  // lane constants: the ldmatrix row within an m16 tile and k-chunk; B
+  // offsets (int8: word rows t, chunks 2g and 2g + 1; bf16: row k = the
+  // ldmatrix row, chunk XOR its low 3 bits)
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int csel = lane >> 4;
+  const int wsw = w8_swz(t);
+  const unsigned bo8_0 = t * 256 + (((2 * g) ^ wsw) << 4);
+  const unsigned bo8_1 = t * 256 + (((2 * g + 1) ^ wsw) << 4);
+  const unsigned bo16 = lr * 128;
+  const int bsw16 = lane & 7;
+  int q = 0;
+
+  // ---- stage 1: up1 at U1 position p = (i, j), tile (r0+1+i, c0+1+j),
+  // reading h patch (i+dy, j+dx); the warp's m16 tiles are warp*MT + m
+  {
+    constexpr bool I8 = H8;
+    using acc_t = typename std::conditional<I8, int, float>::type;
+    const bool active = warp * MT < NT1;
+    int px0[MT];                       // the lane's ldmatrix row's pixel
 #pragma unroll
-      for (int m = 0; m < P1; ++m)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][q] = 0;
+    for (int m = 0; m < MT; ++m) {
+      const int p = min((warp * MT + m) * 16 + lr, NP1 - 1);
+      px0[m] = (p / UC) * HC + p % UC;
+    }
+    // the repair's column norm: this thread's channel, 16 rows of a slice
+    const int cc = tid & (CIN - 1), rg = tid >> 6;
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
+    for (int s = 0; s < NSLAB; ++s) {
+      acc_t acc[MT][8][4];
+      zero(acc);
+      float wsq = 0.f;
 #pragma unroll 1
-        for (int c16 = 0; c16 < CIN; c16 += 16) {
-          int w[4][4];
-          load_w16(w, w1 + (size_t)(tap * 16 + c16 / 4) * C1 + o, C1);
+      for (int tap = 0; tap < 9; ++tap, ++q) {
+        step(q);
+        if constexpr (REPAIR) {
+          if (s == 0 && tap == 0) {      // the patch has landed
+            for (int P = tid; P < HR * HC; P += NT) {
+              float sum = 0.f, x[8];
 #pragma unroll
-          for (int m = 0; m < P1; ++m) {
-            const int p = warp + NWARP * m;
-            if (p < NP1) {
-              const int i = p / UC, j = p % UC;
-              dp4a_16(acc[m],
-                      *reinterpret_cast<const uint4*>(
-                          hs + ((i + dy) * HC + (j + dx)) * CIN + c16),
-                      w);
+              for (int k8 = 0; k8 < 8; ++k8) {
+                unpack8(*reinterpret_cast<const uint4*>(
+                            smem + L::h_off + P * L::h_px + k8 * 16), x);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) sum = fmaf(x[e], x[e], sum);
+              }
+              pix_sq[P] = sum;
             }
           }
-        }
-      }
+          const unsigned char* sl = smem + L::w_off + (q % NST) * L::stage;
 #pragma unroll
-      for (int m = 0; m < P1; ++m) {
-        const int p = warp + NWARP * m;
-        if (p < NP1) {
-          float v[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            v[q] = prelu(dequant(acc[m][q], s1[o + q], b1[o + q]),
-                         a1[(o + q) & (CIN - 1)]);
-          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
-        }
-      }
-    } else {
-      const __nv_bfloat16* hs =
-          reinterpret_cast<const __nv_bfloat16*>(smem + L::h_off);
-      const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(w1v);
-      float acc[P1][4];
-#pragma unroll
-      for (int m = 0; m < P1; ++m)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-#pragma unroll 1
-        for (int c8 = 0; c8 < CIN; c8 += 8) {
-          float w[8][4];
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const uint2 wv = *reinterpret_cast<const uint2*>(
-                w1 + (size_t)(tap * CIN + c8 + k) * C1 + o);
-            w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
-            w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
+          for (int k = 16 * rg; k < 16 * rg + 16; ++k) {
+            const float w = w16_at(sl, k, cc);
+            wsq = fmaf(w, w, wsq);
           }
+        }
+        if (!active) continue;
+        unsigned arow[MT];
+        int asw[MT];
 #pragma unroll
-          for (int m = 0; m < P1; ++m) {
-            const int p = warp + NWARP * m;
-            if (p < NP1) {
-              const int i = p / UC, j = p % UC;
-              float x[8];
-              unpack8(*reinterpret_cast<const uint4*>(
-                          hs + ((i + dy) * HC + (j + dx)) * CIN + c8), x);
+        for (int m = 0; m < MT; ++m) {
+          const int P = px0[m] + (tap / 3) * HC + tap % 3;
+          arow[m] = s_h + P * L::h_px;
+          asw[m] = h_swz<H8>(P);
+        }
+        mma_tap<I8>(acc, arow, asw, s_w + (q % NST) * L::stage, csel,
+                    I8 ? bo8_0 : bo16, bo8_1, bsw16);
+      }
+      if constexpr (REPAIR) {
+        colsq[rg * CIN + cc] = wsq;
+        __syncthreads();
+        if (tid < CIN)                   // |W1 column|, rounded up
+          colsq[4 * CIN + tid] =
+              sqrtf((colsq[tid] + colsq[CIN + tid]) +
+                    (colsq[2 * CIN + tid] + colsq[3 * CIN + tid])) *
+              (1.f + 0x1p-10f);
+        if (tid == 0) ctl[0] = 0;
+        __syncthreads();
+      }
+      // epilogue: u1 for the lane's rows g, g + 8 of each tile, 16
+      // channels.  In the repair modes a value whose rounding is uncertain
+      // goes to the list too (its stored value is overwritten later): both
+      // sums lie within ERR * |x| |w| >= ERR * sum|x w| (Cauchy-Schwarz) of
+      // the exact sum, x the position's 576 inputs, w the channel's column.
+      if (active) {
+        const float* b1s = cst + CB1 + s * CIN;
 #pragma unroll
-              for (int k = 0; k < 8; ++k)
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
-                for (int q = 0; q < 4; ++q)
-                  acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
+          for (int hr = 0; hr < 2; ++hr) {
+            const int p = (warp * MT + m) * 16 + g + 8 * hr;
+            if (p >= NP1) continue;
+            unsigned char* row = u1s + p * L::u_px;
+            const int sw = u_swz<Q8>(p, s);
+            if constexpr (I8) {        // qh8: channels 16t + 4k.. -> chunk t
+              uint32_t wd[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int c = 16 * t + 4 * k, j0 = 4 * (k & 1);
+                const int e = 2 * hr + (k >> 1);
+                const float4 sv =
+                    *reinterpret_cast<const float4*>(cst + CS1 + s * CIN + c);
+                const float4 bv = *reinterpret_cast<const float4*>(b1s + c);
+                const float4 av = *reinterpret_cast<const float4*>(cst + CA1 + c);
+                const float v[4] = {
+                    prelu(dequant(acc[m][j0][e], sv.x, bv.x), av.x),
+                    prelu(dequant(acc[m][j0 + 1][e], sv.y, bv.y), av.y),
+                    prelu(dequant(acc[m][j0 + 2][e], sv.z, bv.z), av.z),
+                    prelu(dequant(acc[m][j0 + 3][e], sv.w, bv.w), av.w)};
+                wd[k] = pack_s8x4(v, inv_su1);
+              }
+              *reinterpret_cast<uint4*>(row + (s * 4 + (t ^ sw)) * 16) =
+                  make_uint4(wd[0], wd[1], wd[2], wd[3]);
+            } else {                   // channels 8j + 2t, + 1
+              float xnorm = 0.f;       // ERR * |x|, rounded up
+              const int P0 = (p / UC) * HC + p % UC;
+#pragma unroll
+              for (int tap = 0; tap < 9; ++tap)
+                xnorm += pix_sq[P0 + (tap / 3) * HC + tap % 3];
+              xnorm = sqrtf(xnorm) * (ERR * (1.f + 0x1p-10f));
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int c = 8 * j + 2 * t;
+                const float2 bv = *reinterpret_cast<const float2*>(b1s + c);
+                const float2 av = *reinterpret_cast<const float2*>(cst + CA1 + c);
+                const float2 wn =
+                    *reinterpret_cast<const float2*>(colsq + 4 * CIN + c);
+                const float z[2] = {acc[m][j][2 * hr] + bv.x,
+                                    acc[m][j][2 * hr + 1] + bv.y};
+                const float a[2] = {av.x, av.y}, w[2] = {wn.x, wn.y};
+                float v[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                  v[u] = prelu(z[u], a[u]);
+                  const float dz = xnorm * w[u] + fabsf(z[u]) * 0x1p-22f;
+                  if (!certain<Q8>(v[u], dz * fmaxf(1.f, fabsf(a[u])),
+                                   inv_su1)) {
+                    const int k = atomicAdd(&ctl[0], 1);
+                    if (k < L::CAP) list[k] = (uint16_t)(p * CIN + c + u);
+                  }
+                }
+                if constexpr (Q8)      // w8a8: int8 pairs
+                  *reinterpret_cast<uint16_t*>(
+                      row + (s * 4 + ((j >> 1) ^ sw)) * 16 + 8 * (j & 1) +
+                      2 * t) =
+                      (uint16_t)((quant(v[0], inv_su1) & 0xff) |
+                                 ((quant(v[1], inv_su1) & 0xff) << 8));
+                else                   // bf16 pairs
+                  *reinterpret_cast<uint32_t*>(row + (s * 8 + (j ^ sw)) * 16 +
+                                               4 * t) = pack_bf16x2(v[0], v[1]);
+              }
             }
           }
-        }
       }
+      if constexpr (REPAIR) {
+        // the repair: the listed values (all of the slab's, if the list
+        // overflowed) summed one product at a time in the twin's order,
+        // RPT a thread, while the slab's slices pass through the ring again
+        __syncthreads();
+        const int listed = ctl[0];
+        const int todo = listed > L::CAP ? NV1 : listed;
+        const int cycles = max(1, (todo + NT * L::RPT - 1) / (NT * L::RPT));
+        if (tid == 0) ctl[1 + s] = cycles;
+#pragma unroll 1
+        for (int cyc = 0; cyc < cycles; ++cyc) {
+          int e[L::RPT];
+          float sum[L::RPT];
 #pragma unroll
-      for (int m = 0; m < P1; ++m) {
-        const int p = warp + NWARP * m;
-        if (p < NP1) {
-          float v[4];
+          for (int j = 0; j < L::RPT; ++j) {
+            const int k = (cyc * L::RPT + j) * NT + tid;
+            e[j] = k >= todo ? -1 : listed > L::CAP ? k : list[k];
+            sum[j] = 0.f;
+          }
+#pragma unroll 1
+          for (int tap = 0; tap < 9; ++tap, ++q) {
+            step(q);
+            const unsigned char* sl = smem + L::w_off + (q % NST) * L::stage;
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            v[q] = prelu(acc[m][q] + b1[o + q], a1[(o + q) & (CIN - 1)]);
-          put4<Q8>(u1s + p * C1 + o, v, inv_su1);
+            for (int j = 0; j < L::RPT; ++j) {
+              if (e[j] < 0) continue;
+              const int p = e[j] / CIN, c = e[j] % CIN;
+              const int P = (p / UC + tap / 3) * HC + p % UC + tap % 3;
+              const unsigned char* hp = smem + L::h_off + P * L::h_px;
+#pragma unroll 2
+              for (int k8 = 0; k8 < 8; ++k8) {
+                float x[8];
+                unpack8(*reinterpret_cast<const uint4*>(
+                            hp + ((k8 ^ h_swz<H8>(P)) << 4)), x);
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                  sum[j] = fmaf(x[i], w16_at(sl, 8 * k8 + i, c), sum[j]);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < L::RPT; ++j) {
+            if (e[j] < 0) continue;
+            const int p = e[j] / CIN, c = e[j] % CIN;
+            put_u1<Q8>(u1s, p, s, c,
+                       prelu(sum[j] + cst[CB1 + s * CIN + c], cst[CA1 + c]),
+                       inv_su1);
+          }
         }
       }
     }
   }
-  __syncthreads();
 
   // ---- stage 2: up2 on the 2x grid of depth_to_space(u1), then the 1x1
   // output conv.  Output (Y, X) = 2x core coord (2*r0+Y, 2*c0+X) reads d1
-  // (Y+du+1, X+dv+1) = U1 ((Y+du+1)/2, (X+dv+1)/2), phase block
-  // ((Y+du+1)&1)*2 + ((X+dv+1)&1).  Conv channel q = (a*2+b)*64 + t goes to
-  // R at fine core (4*r0 + 2Y+a, 4*c0 + 2X+b), channel t.  Lane: channels
-  // q0..q0+3; lanes 0-15 hold phase (half, 0), lanes 16-31 (half, 1).
-  const int ty = n / nx, tx = n % nx;
-  const int sub = lane & 15;
+  // (Y+du+1, X+dv+1) = U1 ((Y+du+1)/2, (X+dv+1)/2), phase slab
+  // ((Y+du+1)&1)*2 + ((X+dv+1)&1).  Slab s = (a, b) of the conv output is
+  // R at fine core (4*r0 + 2Y+a, 4*c0 + 2X+b).  m16 tile = row Y.
+  {
+    constexpr bool I8 = Q8;
+    using acc_t = typename std::conditional<I8, int, float>::type;
+    const int ty = n / nx, tx = n % nx;
 #pragma unroll 1
-  for (int half = 0; half < 2; ++half) {
-    const int q0 = half * HALF + lane * 4;
-    const int pa = half, pb = lane >> 4, t0 = q0 & (CIN - 1);
+    for (int s = 0; s < NSLAB; ++s) {
 #pragma unroll 1
-    for (int pass = 0; pass < NPASS2; ++pass) {
-      using acc_t = typename std::conditional<Q8, int, float>::type;
-      acc_t acc[P2][4];
+      for (int mp = 0; mp < P2; ++mp) {
+        const int tile0 = mp * TPP + warp * MT;
+        const bool active = tile0 < NT2;
+        acc_t acc[MT][8][4];
+        zero(acc);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap, ++q) {
+          step(q);
+          if (!active) continue;
+          const int du = tap / 3, dv = tap % 3;
+          unsigned arow[MT];
+          int asw[MT];
 #pragma unroll
-      for (int m = 0; m < P2; ++m)
+          for (int m = 0; m < MT; ++m) {
+            const int D = tile0 + m + du + 1, E = lr + dv + 1;
+            const int p = (D >> 1) * UC + (E >> 1);
+            const int sb = (D & 1) * 2 + (E & 1);
+            arow[m] = s_u + p * L::u_px + sb * (L::u_px / NSLAB);
+            asw[m] = u_swz<Q8>(p, sb);
+          }
+          mma_tap<I8>(acc, arow, asw, s_w + (q % NST) * L::stage, csel,
+                      I8 ? bo8_0 : bo16, bo8_1, bsw16);
+        }
+        if (!active) continue;
+        // epilogue: R for the lane's 16 channels of fine pixel
+        // (2Y+a, 2X+b), its part of the 64->3 dot, the quad's sum; lanes
+        // t = 0, 1, 2 write output channel t.
+        const int pa = s >> 1, pb = s & 1;
+        const float* b2s = cst + CB2 + s * CIN;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][q] = 0;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int du = tap / 3, dv = tap % 3;
-        if constexpr (Q8) {
-          const int* w2 = static_cast<const int*>(w2v);      // (144, 256)
-#pragma unroll 1
-          for (int c16 = 0; c16 < CIN; c16 += 16) {
-            int w[4][4];
-            load_w16(w, w2 + (size_t)(tap * 16 + c16 / 4) * C1 + q0, C1);
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
-            for (int m = 0; m < P2; ++m) {
-              const int p = warp + NWARP * (pass * P2 + m);
-              if (p < NP2) {
-                const int D = p / YC + du + 1, E = p % YC + dv + 1;
-                dp4a_16(acc[m],
-                        *reinterpret_cast<const uint4*>(
-                            u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
-                            ((D & 1) * 2 + (E & 1)) * CIN + c16),
-                        w);
+          for (int hr = 0; hr < 2; ++hr) {
+            acc_t part[3] = {0, 0, 0};
+            if constexpr (I8) {        // channels 16t + 4k..: word k of R
+              const int* w3s = reinterpret_cast<const int*>(smem + L::w3_off);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int c = 16 * t + 4 * k, j0 = 4 * (k & 1);
+                const int e = 2 * hr + (k >> 1);
+                const float4 sv =
+                    *reinterpret_cast<const float4*>(cst + CS2 + s * CIN + c);
+                const float4 bv = *reinterpret_cast<const float4*>(b2s + c);
+                const float4 av = *reinterpret_cast<const float4*>(cst + CA2 + c);
+                const float v[4] = {
+                    prelu(dequant(acc[m][j0][e], sv.x, bv.x), av.x),
+                    prelu(dequant(acc[m][j0 + 1][e], sv.y, bv.y), av.y),
+                    prelu(dequant(acc[m][j0 + 2][e], sv.z, bv.z), av.z),
+                    prelu(dequant(acc[m][j0 + 3][e], sv.w, bv.w), av.w)};
+                const int rq = (int)pack_s8x4(v, inv_sr);
+#pragma unroll
+                for (int o = 0; o < 3; ++o)
+                  part[o] = __dp4a(rq, w3s[o * 16 + 4 * t + k], part[o]);
+              }
+            } else {                   // channels 8j + 2t, + 1
+              const float* w3s =
+                  reinterpret_cast<const float*>(smem + L::w3_off);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int c = 8 * j + 2 * t;
+                const float2 bv = *reinterpret_cast<const float2*>(b2s + c);
+                const float2 av = *reinterpret_cast<const float2*>(cst + CA2 + c);
+                const float r0 = round_bf16(prelu(acc[m][j][2 * hr] + bv.x, av.x));
+                const float r1 =
+                    round_bf16(prelu(acc[m][j][2 * hr + 1] + bv.y, av.y));
+#pragma unroll
+                for (int o = 0; o < 3; ++o)
+                  part[o] = fmaf(r1, w3s[o * CIN + c + 1],
+                                 fmaf(r0, w3s[o * CIN + c], part[o]));
               }
             }
-          }
-        } else {
-          const __nv_bfloat16* w2 = static_cast<const __nv_bfloat16*>(w2v);
-#pragma unroll 1
-          for (int c8 = 0; c8 < CIN; c8 += 8) {
-            float w[8][4];
 #pragma unroll
-            for (int k = 0; k < 8; ++k) {
-              const uint2 wv = *reinterpret_cast<const uint2*>(
-                  w2 + (size_t)(tap * CIN + c8 + k) * C1 + q0);
-              w[k][0] = bf_lo(wv.x); w[k][1] = bf_hi(wv.x);
-              w[k][2] = bf_lo(wv.y); w[k][3] = bf_hi(wv.y);
-            }
+            for (int off = 1; off < 4; off <<= 1)
 #pragma unroll
-            for (int m = 0; m < P2; ++m) {
-              const int p = warp + NWARP * (pass * P2 + m);
-              if (p < NP2) {
-                const int D = p / YC + du + 1, E = p % YC + dv + 1;
-                float x[8];
-                unpack8(*reinterpret_cast<const uint4*>(
-                            u1s + ((D >> 1) * UC + (E >> 1)) * C1 +
-                            ((D & 1) * 2 + (E & 1)) * CIN + c8), x);
-#pragma unroll
-                for (int k = 0; k < 8; ++k)
-#pragma unroll
-                  for (int q = 0; q < 4; ++q)
-                    acc[m][q] = fmaf(x[k], w[k][q], acc[m][q]);
-              }
-            }
-          }
-        }
-      }
-      // epilogue: R for channels t0..t0+3 of fine pixel (2Y+pa, 2X+pb),
-      // its part of the 64->3 dot, the sum over the pixel's 16 lanes, and
-      // lanes sub = 0, 1, 2 write output channel c = sub.
-#pragma unroll
-      for (int m = 0; m < P2; ++m) {
-        const int p = warp + NWARP * (pass * P2 + m);
-        if (p >= NP2) continue;                    // the same in all lanes
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float z;
-          if constexpr (Q8) z = dequant(acc[m][q], s2[q0 + q], b2[q0 + q]);
-          else z = acc[m][q] + b2[q0 + q];
-          v[q] = prelu(z, a2[t0 + q]);
-        }
-        acc_t part[3];
-        if constexpr (Q8) {
-          const int* w3s = reinterpret_cast<const int*>(smem);
-          const int rq = (int)pack_s8x4(v, inv_sr);
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            part[c] = __dp4a(rq, w3s[c * 16 + t0 / 4], 0);
-        } else {
-          const float* w3s = reinterpret_cast<const float*>(smem);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            float s = 0.f;
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              s = fmaf(round_bf16(v[q]), w3s[c * CIN + t0 + q], s);
-            part[c] = s;
-          }
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
-        if (sub < 3) {
-          const int Y = p / YC, X = p % YC;
-          const int fy = 4 * r0 + 2 * Y + pa, fx = 4 * c0 + 2 * X + pb;
-          const int gy = ty * 4 * core_rows + fy, gx = tx * 4 * CORE + fx;
-          if (fy < 4 * core_rows && gy < 4 * height && gx < 4 * width) {
-            const acc_t sum = sub == 0 ? part[0] : sub == 1 ? part[1]
+              for (int c = 0; c < 3; ++c)
+                part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
+            if (t < 3) {
+              const int Y = tile0 + m, X = g + 8 * hr;
+              const int fy = 4 * r0 + 2 * Y + pa, fx = 4 * c0 + 2 * X + pb;
+              const int gy = ty * 4 * core_rows + fy, gx = tx * 4 * CORE + fx;
+              if (fy < 4 * core_rows && gy < 4 * height && gx < 4 * width) {
+                const acc_t sum = t == 0 ? part[0] : t == 1 ? part[1]
                                                             : part[2];
-            float y;
-            if constexpr (Q8) y = dequant(sum, s3[sub], b3[sub]);
-            else y = sum + b3[sub];
-            store_px(out + ((size_t)gy * 4 * width + gx) * 3 +
-                         (bgr ? 2 - sub : sub),
-                     y);
+                float y;
+                if constexpr (I8) y = dequant(sum, s3[t], b3[t]);
+                else y = sum + b3[t];
+                store_px(out + ((size_t)gy * 4 * width + gx) * 3 +
+                             (bgr ? 2 - t : t),
+                         y);
+              }
+            }
           }
-        }
       }
     }
   }
+  cp_async_wait<0>();    // no copy in flight when the block exits
+}
+
+// The kernel's shared-memory attributes, set; its dynamic shared memory and
+// resident blocks an SM.
+template <int MODE, bool CANVAS>
+cudaError_t occupancy(int* smem, int* blocks) {
+  *smem = Layout<MODE>::total;
+  const auto kernel = tail64_kernel<MODE, CANVAS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
+                                                       *smem);
 }
 
 template <int MODE, bool CANVAS>
 cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
-  const int smem = Layout<MODE>::total;
-  cudaError_t e = cudaFuncSetAttribute(
-      tail64_kernel<MODE, CANVAS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem, blocks;
+  cudaError_t e = occupancy<MODE, CANVAS>(&smem, &blocks);
   if (e != cudaSuccess) return e;
-  const dim3 grid((CORE + BC - 1) / BC, (a.core_rows + BR - 1) / BR, n_tiles);
+  const dim3 grid(CORE / BC, (a.core_rows + BR - 1) / BR, n_tiles);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   tail64_kernel<MODE, CANVAS><<<grid, NT, smem, stream>>>(
       static_cast<const unsigned char*>(a.h), a.out, a.w1, f(a.b1), f(a.a1),
@@ -417,4 +801,19 @@ extern "C" int dgt_tail64(const void* h, void* out, const void* w1,
     default: e = launch<QH8, true>(a, n_tiles, st); break;
   }
   return (int)e;
+}
+
+// The kernel's dynamic shared memory (bytes) and resident blocks an SM in a
+// mode and epilogue, as the launch sets them up; returns the cudaError_t.
+extern "C" int dgt_tail64_occupancy(int mode, int canvas, int* smem,
+                                    int* blocks) {
+  if (mode < BF16 || mode > QH8) return (int)cudaErrorInvalidValue;
+  switch (mode * 2 + (canvas ? 1 : 0)) {
+    case 0: return (int)occupancy<BF16, false>(smem, blocks);
+    case 1: return (int)occupancy<BF16, true>(smem, blocks);
+    case 2: return (int)occupancy<W8A8, false>(smem, blocks);
+    case 3: return (int)occupancy<W8A8, true>(smem, blocks);
+    case 4: return (int)occupancy<QH8, false>(smem, blocks);
+    default: return (int)occupancy<QH8, true>(smem, blocks);
+  }
 }

@@ -56,7 +56,10 @@ _PROBE_DW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PROBE_MBPIPE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+# K2's occupancy query takes (mode, canvas, &smem, &blocks)
+_TAIL64_OCCUPANCY_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
+                "dgt_tail64_occupancy": _TAIL64_OCCUPANCY_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
                 "dgt_probe_roll_fma": _PROBE_ROLL_ARGS,

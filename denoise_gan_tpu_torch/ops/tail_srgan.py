@@ -22,15 +22,28 @@ any CIN:
 
 A 1x1 output conv has no tap that reaches a neighbouring 4-column group,
 so R is quantised from f32 throughout (tail_srgan.py:283, :294-295).
+
+The kernel sums on the tensor cores: int8 x int8 -> int32 (qh8's up1, up2
+in w8a8 and qh8), exact in any order, and bf16 x bf16 -> f32 (up1 in bf16
+and w8a8, up2 in bf16) in its own order.  The twins sum up1 in K1's order
+(ops/tail.py::_up1_sum); the kernel sums again, in that order, each u1
+value whose int8 step (w8a8) or bf16 rounding (bf16) its tensor-core sum
+leaves uncertain, so its u1 is the twin's.  ``dyadic_up1_`` and
+``dyadic_h`` draw inputs on which every f32 partial sum of up1 is exact,
+so that any order gives the twin's u1.  ``sass_counts``, ``ptxas_report``
+and ``occupancy`` report on the built kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
 
 import torch
 
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops.tail import (
-    TailWeights, mode_counts, prepare_tail, run_kernel, run_twin,
+    MODES, TailWeights, mode_counts, prepare_tail, run_kernel, run_twin,
 )
 
 CIN = 64         # SRGAN body output channels
@@ -57,12 +70,14 @@ def prepare_tail64(tail: SRGANTail, q8_calib: torch.Tensor | None = None,
 def fused_tail64_u8_reference(h: torch.Tensor, tw: TailWeights, ny: int,
                               nx: int, height: int, width: int,
                               bgr: bool = False) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: per tile up1 (summed in the
-    kernel's order), up2 and the 1x1 conv at full f32 precision, tanh,
-    crop-stitch and u8.  h: (ny*nx, cr+4, 124, 64) body output, bf16 (int8
-    for qh8 weights).  Returns the (4*height, 4*width, 3) uint8 frame.  The
-    int8 modes sum integers in f32, exactly (|sum| <= 127*127*576 < 2**24),
-    so they match the kernel bit for bit but for tanh; bf16 differs where
+    """Plain PyTorch twin of the kernel: per tile up1 (summed in K1's
+    order, ops/tail.py::_up1_sum), up2 and the 1x1 conv at full f32
+    precision, tanh, crop-stitch and u8.  h: (ny*nx, cr+4, 124, 64) body
+    output, bf16 (int8 for qh8 weights).  Returns the (4*height, 4*width, 3)
+    uint8 frame.  The int8 sums are integers, exact in f32 (|sum| <=
+    127*127*576 < 2**24), and the kernel's u1 is the twin's (it sums again
+    in this order where its own sums leave u1's rounding uncertain), so w8a8
+    and qh8 match the kernel bit for bit but for tanh; bf16 differs where
     the f32 sums of up2 and the output conv round apart."""
     return run_twin("fused_tail64_u8_reference", launch_counts, CIN, h, tw,
                     ny, nx, height, width, bgr, canvas=False)
@@ -99,3 +114,92 @@ def fused_tail64_canvas(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
     return run_kernel("fused_tail64_canvas", launch_counts, "dgt_tail64",
                       fused_tail64_canvas_reference, CIN, h, tw, ny, nx,
                       height, width, bgr, canvas=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs on which every f32 partial sum of up1 is exact
+
+# h on k / H_DEN and W1 on j / W1_DEN, |k|, |j| <= GRID_MAX, b1 on multiples
+# of 2**-9: every product is a multiple of 2**-9 and every partial sum of
+# up1 below 576 * 2 * 0.25 = 288 < 2**9, so 18 significant bits hold it.
+H_DEN, W1_DEN, GRID_MAX = 8, 64, 16
+B1_STEP = 2.0 ** -9
+
+
+@torch.no_grad()
+def dyadic_up1_(tail: SRGANTail, generator: torch.Generator) -> SRGANTail:
+    """Redraw the tail's up1 weight on the grid j / W1_DEN (|j| <=
+    GRID_MAX) and its bias on multiples of B1_STEP (|b1| <= 64 steps), in
+    place; returns the tail."""
+    conv = tail.up1.Conv_0
+    for p, den, top in ((conv.weight, W1_DEN, GRID_MAX),
+                        (conv.bias, 1 / B1_STEP, 64)):
+        k = torch.randint(-top, top + 1, p.shape, generator=generator)
+        p.copy_(k.float() / den)
+    return tail
+
+
+def dyadic_h(shape: tuple[int, ...], generator: torch.Generator,
+             device: torch.device | str = "cpu") -> torch.Tensor:
+    """bf16 body-output tiles on the grid k / H_DEN, |k| <= GRID_MAX."""
+    k = torch.randint(-GRID_MAX, GRID_MAX + 1, shape, generator=generator)
+    return (k.float() / H_DEN).to(device, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the built kernel
+
+def sass_counts() -> dict[tuple[str, bool], dict[str, int]]:
+    """IMMA and HMMA instructions (the tensor-core products) in each
+    instantiation of the kernel, by (mode, canvas), from the built
+    library's SASS (``_build.sass_functions``); {} where the toolkit has no
+    cuobjdump."""
+    from denoise_gan_tpu_torch.ops import _build
+
+    counts = {}
+    for name, block in _build.sass_functions().items():
+        m = re.search(r"tail64_kernelILi(\d)ELb(\d)E", name)
+        if m:
+            lines = block.splitlines()
+            counts[(MODES[int(m[1])], m[2] == "1")] = {
+                op: sum(op in line for line in lines)
+                for op in ("IMMA", "HMMA")}
+    return counts
+
+
+def occupancy(mode: str, canvas: bool) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, resident blocks an SM) of the kernel
+    in `mode` and epilogue, as its launch sets them; needs the card."""
+    from denoise_gan_tpu_torch.ops._build import load_library
+
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = load_library().dgt_tail64_occupancy(
+        MODES.index(mode), int(canvas), ctypes.byref(smem),
+        ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"dgt_tail64_occupancy failed: CUDA error {err}")
+    return smem.value, blocks.value
+
+
+def ptxas_report() -> dict[tuple[str, bool], dict[str, int]]:
+    """Registers and spill bytes of each instantiation of the kernel, by
+    (mode, canvas), from the ptxas report of the build made in this process
+    (``_build.build_log``); {} where this process built nothing."""
+    from denoise_gan_tpu_torch.ops import _build
+
+    report, key = {}, None
+    for line in _build.build_log.splitlines():
+        m = re.search(r"Function properties for \S*tail64_kernelILi(\d)ELb(\d)E",
+                      line)
+        if m:
+            key = (MODES[int(m[1])], m[2] == "1")
+            report[key] = {}
+        elif key and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            report[key].update(stack=nums[0], spill_stores=nums[1],
+                               spill_loads=nums[2])
+        elif key and "Used" in line and "registers" in line:
+            report[key]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return report

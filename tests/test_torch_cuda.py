@@ -1,11 +1,11 @@
 """The fused tail CUDA kernels (csrc/tail.cu for FSRGAN, csrc/tail_srgan.cu
 for SRGAN) against their plain PyTorch twins on the card, at small and ragged
 geometries that chip_smoke.py's 1080p shapes do not reach: core_rows not a
-multiple of the kernels' 5-row band, and frames that end inside the last tile
-row and column.  Likewise the fused inverted residual (csrc/mbconv.cu, K3)
-against its plain version, bit for bit, at heights that its 8-row band and
-widths that its 16-column chunk do not divide, with be > 0 so that the
-zero ring of the expanded tensor is exercised.
+multiple of the kernels' bands (5 rows in K1, 15 in K2), and frames that end
+inside the last tile row and column.  Likewise the fused inverted residual
+(csrc/mbconv.cu, K3) against its plain version, bit for bit, at heights that
+its 8-row band and widths that its 16-column chunk do not divide, with be > 0
+so that the zero ring of the expanded tensor is exercised.
 
 These tests need a CUDA GPU and nvcc; without them they skip.  tests/
 conftest.py imports jax and hides CUDA devices, so on a machine with a card
@@ -15,17 +15,21 @@ run them without it:
 
 The port runs in a child process (tests/torch_process.py).  Bound as
 chip_smoke.py's: max |du8| <= 1 on < 1e-3 of the bytes (the two sum in
-different orders).  In w8a8 mode every sum after up1 is an exact integer and
-up1 sums in the twin's order, and in qh8 mode up1's sums are integers too,
-so kernel and twin agree byte for byte; for FSRGAN that includes the
-output-conv taps that read R quantised from bf16 (tile-local output columns
-4j and 4j+3, a quarter of each of their taps).  The canvas epilogue (the
-bf16 tanh that the u8 epilogue rounds) is held to the same: equal in the
-int8 modes, and in bf16 apart by at most 2**-8 (one bf16 ulp at the top of
-tanh's range: one rounding apart) on < 2e-3 of the values, about twice
-the largest reading on the H100 (bf16 values round apart more often than
-bytes: 1.03e-3 at 1x2x24, where the bytes differ on < 1e-3; 1.11e-3 for
-K1 at 1080p in chip_smoke.py).
+different orders).  In qh8 mode every sum is an exact integer, so kernel and
+twin agree byte for byte, in both kernels.  In w8a8 mode every sum after up1
+is an exact integer.  K1 sums up1 in the twin's order, so it agrees byte for
+byte, output-conv taps that read R quantised from bf16 (tile-local output
+columns 4j and 4j+3, a quarter of each of their taps) included.  K2 sums up1
+on the tensor cores and sums again, in the twin's order, every value whose
+int8 step its error bound leaves uncertain (csrc/tail_srgan.cu), so it
+agrees byte for byte too; on inputs where every f32 partial sum of up1 is
+exact (ops/tail_srgan.py::dyadic_up1_ and dyadic_h) it does so without the
+repair.  The canvas epilogue (the bf16 tanh that the u8 epilogue rounds) is
+held to the same: equal in the int8 modes, and in bf16 apart by at most
+2**-8 (one bf16 ulp at the top of tanh's range: one rounding apart) on
+< 2e-3 of the values, about twice the largest reading on the H100 (bf16
+values round apart more often than bytes: 1.03e-3 at 1x2x24, where the
+bytes differ on < 1e-3; 1.11e-3 for K1 at 1080p in chip_smoke.py).
 """
 
 import pytest
@@ -90,11 +94,24 @@ def test_w8a8_kernel_is_bit_identical(port, geom, family):
     assert r["max_diff"] == 0, r
 
 
+@pytest.mark.parametrize("canvas", [False, True], ids=["u8", "canvas"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_srgan_w8a8_bit_identical_on_exact_sums(port, geom, canvas):
+    """K2 in w8a8, both epilogues, equal to its twin where every f32
+    partial sum of up1 is exact in any order: there every order gives the
+    twin's u1, whatever the error bound leaves to the repair."""
+    ny, nx, cr, height, width = geom
+    r = port("cuda_exact_sum_w8a8", ny, nx, cr, height, width, canvas)
+    _check(r, height, width, canvas=canvas)
+    assert r["max_diff"] == 0, r
+
+
 @pytest.mark.parametrize("bgr", [False, True], ids=["rgb", "bgr"])
 @pytest.mark.parametrize("family", ["fsrgan", "srgan"])
 @pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
 def test_qh8_kernel_is_bit_identical(port, geom, family, bgr):
-    """qh8: int8 h from quantize_h, up1 on __dp4a."""
+    """qh8: int8 h from quantize_h, up1 on int8 products (K1 __dp4a, K2
+    mma.sync)."""
     ny, nx, cr, height, width = geom
     r = port("cuda_kernel_vs_twin", ny, nx, cr, height, width, "qh8", bgr,
              family=family)

@@ -6,10 +6,12 @@ port runs in a child process (tests/torch_process.py).
 On the u8 output, both modes: max |diff| <= 1 on < 1e-3 of the bytes,
 tighter than the JAX package's w8a8 envelope (max <= 2, > 1 on < 5e-3).
 bf16 differs by summation order only.  w8a8's sums after up1 are exact
-integers, but up1 sums 576 products in f32 in the kernel's order, and XLA's
-dot in another: 76% of the u1 sums differ in their last bits, and one int8
-u1 level in 1.6 million flips, which moves 9.4e-5 of the bytes by 1 at this
-seed (measured; ROADMAP.md C).
+integers, but the twin sums up1's 576 products in f32 in K1's order, and
+XLA's dot in another: 76% of the u1 sums differ in their last bits, and one
+int8 u1 level in 1.6 million flips, which moves 9.4e-5 of the bytes by 1 at
+this seed (measured; ROADMAP.md C).  The last two tests hold the exact-sum
+input (ops/tail_srgan.py::dyadic_up1_, dyadic_h) to its name: there every
+order gives the same u1.
 """
 
 import jax
@@ -174,3 +176,25 @@ def test_wrapper_validates_input(port, tail_params, h_tiles, bad):
 def test_prepare_tail64_rejects_other_tails(port, family, scale):
     with pytest.raises(ValueError, match="4x tail"):
         port("prepare_tail64_of", family, scale)
+
+
+def test_exact_sum_inputs_sum_exactly(port):
+    """On ops/tail_srgan.py's dyadic grid every f32 partial sum of up1 is
+    exact, so the twin's sums equal the float64 sums rounded once (and any
+    order, the tensor cores' included, gives them); on N(0, 0.25) h the
+    same comparison differs, so the test can tell."""
+    got = port("exact_sum_up1", NY, NX, CR)
+    n_diff, top = got["dyadic"]
+    assert n_diff == 0 and top < 2 ** 9, got
+    assert got["gaussian"][0] > 0, got
+
+
+def test_w8a8_twin_ignores_up1_order_on_exact_sums(port):
+    """The w8a8 twin's frame on exact-sum inputs does not change when up1
+    sums its taps in reverse: the input on which the kernel's w8a8 is held
+    byte for byte to the twin (tests/test_torch_cuda.py) earns its name."""
+    frame, reversed_frame, std_min = port("exact_sum_twin_orders", NY, NX,
+                                          CR)
+    assert frame.shape == (4 * NY * CR, 4 * NX * jtail.CORE, 3)
+    np.testing.assert_array_equal(frame, reversed_frame)
+    assert std_min > 5                         # not a constant image

@@ -303,6 +303,69 @@ def prepare_tail64_of(family, scale=4):
     ttail_srgan.prepare_tail64(tail.eval())
 
 
+def _exact_sum_case(ny, nx, core_rows, seed, dyadic):
+    """A seeded SRGAN tail and bf16 h of (ny*nx, core_rows+4, 124, 64):
+    with `dyadic`, up1 and h on ops/tail_srgan.py's exact-sum grid, else
+    h ~ N(0, 0.25)."""
+    gen = torch.Generator().manual_seed(seed)
+    tail = _seeded_tail("srgan", gen)
+    shape = (ny * nx, core_rows + 4, ttail.T, ttail_srgan.CIN)
+    if not dyadic:
+        return tail, (torch.randn(shape, generator=gen) * 0.5).bfloat16()
+    ttail_srgan.dyadic_up1_(tail, gen)
+    return tail, ttail_srgan.dyadic_h(shape, gen)
+
+
+@torch.no_grad()
+def exact_sum_up1(ny, nx, core_rows, seed=0):
+    """up1's sums as the twin takes them (ops/tail.py::_up1_sum, f32 in
+    K1's order) against the same sums in float64 rounded once to f32, on
+    exact-sum inputs and on N(0, 0.25) h: {case: (number of up1 values
+    that differ, max |sum|)}."""
+    out = {}
+    for case in ("gaussian", "dyadic"):
+        tail, h = _exact_sum_case(ny, nx, core_rows, seed, case == "dyadic")
+        w1 = ttail_srgan.prepare_tail64(tail).conv_weights()[0]
+        x = h.float().permute(0, 3, 1, 2)
+        s32 = ttail._up1_sum(x, w1)
+        s64 = torch.nn.functional.conv2d(x.double(), w1.double(), padding=1)
+        out[case] = (int((s32 != s64.float()).sum()),
+                     float(s64.abs().max()))
+    return out
+
+
+def _up1_sum_reversed(x, w1):
+    """ops/tail.py::_up1_sum with the taps and input channels in reverse
+    order."""
+    n, c, hh, ww = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    acc = x.new_zeros((n, w1.shape[0], hh, ww))
+    for dy in reversed(range(3)):
+        for dx in reversed(range(3)):
+            for ci in reversed(range(c)):
+                acc.addcmul_(xp[:, ci:ci + 1, dy:dy + hh, dx:dx + ww],
+                             w1[:, ci, dy, dx].view(1, -1, 1, 1))
+    return acc
+
+
+def exact_sum_twin_orders(ny, nx, core_rows, seed=0):
+    """The w8a8 SRGAN twin's u8 frame on exact-sum inputs (int8 scales
+    calibrated on that h), with up1 summed as ops/tail.py::_up1_sum and
+    with its order reversed: (frame, reversed-order frame, the smallest
+    per-channel std of the frame)."""
+    tail, h = _exact_sum_case(ny, nx, core_rows, seed, True)
+    tw = ttail_srgan.prepare_tail64(tail, q8_calib=h)
+    args = (h, tw, ny, nx, ny * core_rows, nx * ttail.CORE)
+    want = ttail_srgan.fused_tail64_u8_reference(*args)
+    summed = ttail._up1_sum
+    ttail._up1_sum = _up1_sum_reversed
+    try:
+        got = ttail_srgan.fused_tail64_u8_reference(*args)
+    finally:
+        ttail._up1_sum = summed
+    return _np(want), _np(got), float(want.float().std(dim=(0, 1)).min())
+
+
 def cuda_requests_without_gpu():
     """With CUDA absent: the messages of require_cuda() and
     resolve_device("cuda") (None if one did not raise RuntimeError), and
@@ -581,27 +644,31 @@ def cuda_available():
     return torch.cuda.is_available()
 
 
+@torch.no_grad()
+def _seeded_tail(family, gen):
+    """A tail of `family` on the CPU drawn from `gen`.  Biases and slopes
+    are redrawn; SRGAN's N(0, 0.02) kernels are redrawn at N(0, 1/fan_in)
+    so that the output is not flat."""
+    tail = _FAMILIES[family][0](generator=gen).eval()
+    for name, p in tail.named_parameters():
+        if name.endswith("alpha"):
+            p.uniform_(0.05, 0.3, generator=gen)
+        elif name.endswith("bias"):
+            p.normal_(0.0, 0.05, generator=gen)
+        elif family == "srgan":
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+    return tail
+
+
 def _cuda_tails(family):
-    """bf16, w8a8 and qh8 TailWeights of a seeded tail of `family` on the
-    card.
-    Biases and slopes are redrawn; SRGAN's N(0, 0.02) kernels are redrawn
-    at N(0, 1/fan_in) so that the output is not flat."""
+    """bf16, w8a8 and qh8 TailWeights of a seeded tail of `family`
+    (_seeded_tail) on the card."""
     if family not in _CUDA_TAILS:
-        cls, cin, prepare = _FAMILIES[family][:3]
-        dev = torch.device("cuda")
+        cin, prepare = _FAMILIES[family][1:3]
         gen = torch.Generator().manual_seed(0)
-        tail = cls(generator=gen).eval()
-        with torch.no_grad():
-            for name, p in tail.named_parameters():
-                if name.endswith("alpha"):
-                    p.uniform_(0.05, 0.3, generator=gen)
-                elif name.endswith("bias"):
-                    p.normal_(0.0, 0.05, generator=gen)
-                elif family == "srgan":
-                    p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
-        tail = tail.to(dev)
+        tail = _seeded_tail(family, gen).to("cuda")
         calib = (torch.randn((4, 28, ttail.T, cin), generator=gen)
-                 * 0.5).to(dev, torch.bfloat16)
+                 * 0.5).to("cuda", torch.bfloat16)
         _CUDA_TAILS[family] = dict(
             bf16=prepare(tail), w8a8=prepare(tail, q8_calib=calib),
             qh8=prepare(tail, q8_calib=calib, qh8=True))
@@ -617,15 +684,40 @@ def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr,
     canvas tanh's units) and the share of outputs that differ, and the
     smallest per-channel std of the output on the u8 scale."""
     fam = _FAMILIES[family]
-    cin, counts = fam[1], fam[5]
-    kernel, twin_fn = (fam[6], fam[7]) if canvas else (fam[3], fam[4])
+    cin = fam[1]
     gen = torch.Generator().manual_seed(core_rows * 1000 + width)
     h = (torch.randn((ny * nx, core_rows + 4, ttail.T, cin), generator=gen)
          * 0.5).to("cuda", torch.bfloat16)
     tw = _cuda_tails(family)[mode]
     if tw.qh8:
         h = ttail.quantize_h(h, tw)
-    args = (h, tw, ny, nx, height, width, bgr)
+    return _kernel_vs_twin(family, (h, tw, ny, nx, height, width, bgr),
+                           canvas)
+
+
+def cuda_exact_sum_w8a8(ny, nx, core_rows, height, width, canvas=False):
+    """As :func:`cuda_kernel_vs_twin` for the SRGAN tail in w8a8 (u8 RGB,
+    or the canvas), on inputs where every f32 partial sum of up1 is exact
+    in any order (ops/tail_srgan.py::dyadic_up1_ and dyadic_h, the int8
+    scales calibrated on that h)."""
+    gen = torch.Generator().manual_seed(core_rows * 1000 + width)
+    tail = _seeded_tail("srgan", gen)
+    ttail_srgan.dyadic_up1_(tail, gen)
+    h = ttail_srgan.dyadic_h((ny * nx, core_rows + 4, ttail.T, 64), gen,
+                             "cuda")
+    tw = ttail_srgan.prepare_tail64(tail.to("cuda"), q8_calib=h)
+    return _kernel_vs_twin("srgan", (h, tw, ny, nx, height, width, False),
+                           canvas)
+
+
+def _kernel_vs_twin(family, args, canvas):
+    """The kernel of `family` (u8, or the canvas epilogue) and its twin on
+    the same arguments (h, tw, ny, nx, height, width, bgr) on the card; the
+    dict of cuda_kernel_vs_twin."""
+    fam = _FAMILIES[family]
+    counts = fam[5]
+    kernel, twin_fn = (fam[6], fam[7]) if canvas else (fam[3], fam[4])
+    mode = args[1].mode
     key = f"{kernel.__name__}:{mode}"
     before = counts[key]
     got = kernel(*args)
