@@ -15,25 +15,41 @@ Phases, each printed on its own line:
    < 1e-3 of the values (bf16: < 2e-3, bf16 values round apart more often
    than bytes).  w8a8 u8 must be bit-identical; for qh8 and the int8
    canvases bit-identity is the target, and each line says if it held.
+   Then K1's build: each instantiation's IMMA and HMMA counts in its SASS
+   (cuobjdump; the run fails if a mode's tensor-core products, HMMA for
+   bf16 and w8a8's up1, IMMA for the int8 ones, count 0), its registers
+   and spills (ptxas), dynamic shared memory and resident blocks an SM;
+   w8a8 and qh8, u8 and canvas, on the one-sign input at 1080p
+   (ops/tail.py::one_sign_up1_ on a copy of the seeded tail, one_sign_h,
+   the int8 scales calibrated on it: every up1 product >= 0, the bias
+   cancelling the large sums), and w8a8 on the exact-sum input
+   (ops/tail_srgan.py::dyadic_up1_ on a copy of the seeded tail, dyadic_h:
+   every f32 partial sum of up1 exact in any order), bit-identical to the
+   twin (K1, like K2, keeps a tensor-core u1 in w8a8 only where its int8
+   step is certain within ops/tail.py::up1_err(288) and sums the rest
+   again in the twin's order); and (printed) the share of up1's values that
+   margin leaves uncertain on 16 seeded tiles and the one-sign input.
 3b. K2 vs twin: the SRGAN fused tail kernel (csrc/tail_srgan.cu) the same
    way, at h (128, 139, 124, 64); w8a8 bit-identical as in K1 (the kernel
    sums up1 on the tensor cores and again, in the twin's order, where that
-   leaves u1's rounding uncertain).  Then K2's build: each instantiation's
-   IMMA and HMMA counts in its SASS (cuobjdump; the run fails if a mode's
-   products, HMMA for bf16 and w8a8's up1, IMMA for the int8 ones, count
-   0), its registers and spills (ptxas), dynamic shared memory and
-   resident blocks an SM; and w8a8 on the exact-sum input at 1080p
-   (ops/tail_srgan.py::dyadic_up1_ on a copy of the seeded tail, dyadic_h:
-   every f32 partial sum of up1 exact in any order), u8 and canvas,
-   bit-identical to the twin.  Then why K2 repairs u1: the largest
-   distance, relative to |x| |w|, of f32 sums of SUM_K bf16 products from
-   the exact sum, for bf16 mma.sync (K8's product kernel, relayout.py's
-   seeded operands, 2048 x 128 sums) and for the twin's one-at-a-time
-   order, on inputs of both signs and of one sign; the two together must
-   stay below K2's margin K2_UP1_ERR.  And (printed) how far the twin's
-   frame moves when up1 is summed exactly (float64, rounded once) instead
-   of in its order: w8a8 u8 and the bf16 canvas at 1080p, against the
-   kernel-vs-twin bounds.
+   leaves u1's rounding uncertain).  Then K2's build report as K1's (HMMA
+   for bf16 and w8a8's up1, IMMA for the int8 products); the one-sign and
+   exact-sum inputs as K1, bit-identical to the twin.  Then K2's up1
+   margin ERR = ops/tail.py::up1_err(SUM_K), the twin's part gamma_575
+   (proven) plus the tensor core's (an allowance of 2**-16, which K1's
+   margin shares): the largest distance, relative
+   to |x| |w|, of f32 sums of SUM_K bf16 products from the exact sum, for
+   bf16 mma.sync (K8's product kernel, relayout.py's seeded operands, 2048
+   x 128 sums) and for the twin's one-at-a-time order, on inputs of both
+   signs and of one sign; the run fails unless the twin's order stays
+   within its part and mma.sync within a tenth of its part.  The share of
+   up1's values that the margin leaves uncertain (summed again by the
+   repair), with this ERR and with the measured margin 2**-18, on 16 seeded
+   tiles (w8a8, bf16) and on the one-sign input (w8a8): the kernels' test
+   (tail_common.cuh::certain) applied to the twin's sums.  And (printed) how
+   far the twin's frame moves when up1 is summed exactly (float64, rounded
+   once) instead of in its order: w8a8 u8 and the bf16 canvas at 1080p,
+   against the kernel-vs-twin bounds.
 3c. K3 vs its plain version: the fused inverted residual (csrc/mbconv.cu)
    at the 1080p body shape x (128, 139, 124, 32) bf16, with and without
    the expand, on the seeded FSRGAN blocks (non-zero BN statistics, so
@@ -145,10 +161,14 @@ Phases, each printed on its own line:
    and frame borders.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
-   module on cuDNN), quantize_h and body ms/frame; K3's six launches per
-   frame vs its plain version and the six plain InvertedResidual modules on
-   cuDNN, and the K3-body engine's frames/s beside the plain-body engine's;
-   each beside the card's name and power limit.  Each kernel's bound (the
+   module on cuDNN), quantize_h and body ms/frame; K2's w8a8 and bf16 u8
+   with ERR and with the measured margin 2**-18 (csrc/tail_srgan.cu built a
+   second time with -DTAIL64_UP1_ERR, launched directly: not counted), in
+   turns (2**-18, ERR, ERR, 2**-18): what the proven bound costs; K3's
+   six launches per frame vs its plain version and the six plain
+   InvertedResidual modules on cuDNN, and the K3-body engine's frames/s
+   beside the plain-body engine's; each beside the card's name and power
+   limit.  Each kernel's bound (the
    larger of its bytes over 3.35 TB/s and its operations over the
    tensor-core peak for their type) is computed from the main path's
    shapes.  The probes: K9's ms per launch over 32 chained launches (the
@@ -252,10 +272,14 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
 # phase 3b: K2's up1 margin (csrc/tail_srgan.cu, ERR): the kernel keeps a
-# tensor-core u1 value only where every sum within K2_UP1_ERR * |x| |w| of
-# it rounds alike; SUM_K is up1's depth, 9 taps x 64 channels
-K2_UP1_ERR = 2.0 ** -18
+# tensor-core u1 value only where every sum within ERR * |x| |w| of it
+# rounds alike, ERR = the two parts of ops/tail.py::up1_err(SUM_K); SUM_K
+# is up1's depth, 9 taps x 64 channels.  MEASURED_ERR, the margin K2 had
+# before (measured, not proven), is built and timed beside it (phase 5).
 SUM_K = 576
+MEASURED_ERR = 2.0 ** -18
+# phase 3b: the share of u1 values left uncertain is counted on these tiles
+SHARE_TILES = 16
 # phase 3d: K6 bf16 checked step by step for BF16_STEPS steps (then the
 # chain overflows on its way to inf and NaN), the random states for
 # RANDOM_STEPS
@@ -292,6 +316,9 @@ class Family:
     replaces: str
     body_gain: float
     out_gain: float
+    kernel_name: str
+    occupancy: str
+    products: dict
 
     def key(self, fn: Callable, mode: str) -> str:
         """The launch-count key of a wrapper in a mode."""
@@ -304,7 +331,9 @@ FAMILIES = [
            tail_ops.fused_tail_canvas, tail_ops.fused_tail_canvas_reference,
            tail_ops.launch_counts, ke.build_fsrgan_kernel_engine,
            ke.prepare_fsrgan_engine, "denoise_gan_tpu_torch/csrc/tail.cu",
-           "denoise_gan_tpu/ops/pallas/tail.py:290", 1.0, 0.5),
+           "denoise_gan_tpu/ops/pallas/tail.py:290", 1.0, 0.5,
+           "tail_kernel", "dgt_tail_occupancy",
+           {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"), "qh8": ("IMMA",)}),
     Family("srgan", SRGANTail, 64, tail_srgan.prepare_tail64,
            tail_srgan.fused_tail64_u8, tail_srgan.fused_tail64_u8_reference,
            tail_srgan.fused_tail64_canvas,
@@ -313,7 +342,8 @@ FAMILIES = [
            ke.prepare_srgan_engine,
            "denoise_gan_tpu_torch/csrc/tail_srgan.cu",
            "denoise_gan_tpu/ops/pallas/tail_srgan.py:151", SRGAN_BODY_GAIN,
-           1.0),
+           1.0, "tail64_kernel", "dgt_tail64_occupancy",
+           {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"), "qh8": ("IMMA",)}),
 ]
 
 
@@ -584,52 +614,82 @@ def kernel_vs_twin(label: str, fam: Family, model, dev):
     return inputs, (ny, nx, cr), tails, errs
 
 
-def k2_build_and_exact_sums(model, dev) -> None:
-    """Phase 3b, K2's build (its SASS product counts, ptxas registers and
-    spills, shared memory and blocks an SM per instantiation) and w8a8 on
-    the exact-sum input at 1080p, u8 and canvas, bit-identical to the
-    twin."""
-    products = {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"),
-                "qh8": ("IMMA",)}
-    sass = tail_srgan.sass_counts()
-    ptxas = tail_srgan.ptxas_report()
+def build_report(fam: Family) -> None:
+    """Phase 3/3b: the family's kernel build, per instantiation: its SASS
+    product counts, ptxas registers and spills, shared memory and blocks an
+    SM; fails where a mode runs none of its tensor-core products."""
+    sass = tail_ops.sass_counts(fam.kernel_name)
+    ptxas = tail_ops.ptxas_report(fam.kernel_name)
     for mode in MODES:
         for canvas in (False, True):
             key = (mode, canvas)
-            smem, blocks = tail_srgan.occupancy(mode, canvas)
-            print(f"  tail64_kernel<{mode}, {'canvas' if canvas else 'u8'}>:"
-                  f" SASS {sass.get(key)}, ptxas {ptxas.get(key)}, shared "
-                  f"memory {smem} bytes, {blocks} blocks an SM")
-            if not all(sass.get(key, {}).get(op) for op in products[mode]):
-                raise AssertionError(f"tail64_kernel<{mode}> runs no "
-                                     f"{'/'.join(products[mode])}: "
-                                     f"{sass.get(key)}")
-    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
-    gen = torch.Generator().manual_seed(SEED)
-    tail = tail_srgan.dyadic_up1_(copy.deepcopy(model.tail), gen)
-    h = tail_srgan.dyadic_h((ny * nx, cr + 4, tail_ops.T, tail_srgan.CIN),
-                            gen, dev)
-    tw = tail_srgan.prepare_tail64(tail, q8_calib=h[:16])
-    for kernel, twin in ((tail_srgan.fused_tail64_u8,
-                          tail_srgan.fused_tail64_u8_reference),
-                         (tail_srgan.fused_tail64_canvas,
-                          tail_srgan.fused_tail64_canvas_reference)):
+            smem, blocks = tail_ops.occupancy(fam.occupancy, mode, canvas)
+            print(f"  {fam.kernel_name}<{mode}, "
+                  f"{'canvas' if canvas else 'u8'}>: SASS {sass.get(key)}, "
+                  f"ptxas {ptxas.get(key)}, shared memory {smem} bytes, "
+                  f"{blocks} blocks an SM")
+            if not all(sass.get(key, {}).get(op)
+                       for op in fam.products[mode]):
+                raise AssertionError(
+                    f"{fam.kernel_name}<{mode}> runs no "
+                    f"{'/'.join(fam.products[mode])}: {sass.get(key)}")
+
+
+def bit_identical(what: str, fam: Family, h: torch.Tensor, tw) -> None:
+    """The family's kernel, u8 and canvas, against its twin on h and tw at
+    1080p: equal, or the run fails."""
+    ny, nx, _ = ke.plan_grid(HEIGHT, WIDTH, 27)
+    for kernel, twin in ((fam.kernel, fam.twin),
+                         (fam.canvas, fam.canvas_twin)):
         args = (h, tw, ny, nx, HEIGHT, WIDTH)
         got = kernel(*args)
         torch.cuda.synchronize()
         same, d_max = same_bits(got.float(), twin(*args).float())
-        print(f"  {kernel.__name__} w8a8 on the exact-sum input: "
+        print(f"  {kernel.__name__} {tw.mode} on the {what} input: "
               f"{'bit-identical' if same else f'max |d| {d_max}'}")
         if not same:
-            raise AssertionError(f"{kernel.__name__} w8a8 differs from its "
-                                 f"twin on the exact-sum input")
+            raise AssertionError(f"{kernel.__name__} {tw.mode} differs from "
+                                 f"its twin on the {what} input")
+
+
+def one_sign_case(fam: Family, model, dev, qh8: bool = False):
+    """The one-sign input at 1080p: (h, tail weights): the seeded tail
+    through one_sign_up1_, h from one_sign_h, the int8 scales calibrated on
+    h's first 16 tiles; qh8's h through quantize_h."""
+    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
+    gen = torch.Generator().manual_seed(SEED)
+    tail = tail_ops.one_sign_up1_(copy.deepcopy(model.tail))
+    h = tail_ops.one_sign_h((ny * nx, cr + 4, tail_ops.T, fam.cin), gen, dev)
+    tw = fam.prepare(tail, q8_calib=h[:16], qh8=qh8)
+    return (tail_ops.quantize_h(h, tw) if qh8 else h), tw
+
+
+def one_sign_checks(fam: Family, model, dev) -> None:
+    """Phase 3/3b: w8a8 and qh8, u8 and canvas, bit-identical to the twin
+    on the one-sign input at 1080p."""
+    for qh8 in (False, True):
+        bit_identical("one-sign", fam, *one_sign_case(fam, model, dev, qh8))
+
+
+def exact_sums(fam: Family, model, dev) -> None:
+    """Phase 3/3b: the family's kernel in w8a8 on the exact-sum input at
+    1080p (ops/tail_srgan.py::dyadic_up1_ on a copy of the seeded tail,
+    dyadic_h), u8 and canvas, bit-identical to the twin."""
+    ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
+    gen = torch.Generator().manual_seed(SEED)
+    tail = tail_srgan.dyadic_up1_(copy.deepcopy(model.tail), gen)
+    h = tail_srgan.dyadic_h((ny * nx, cr + 4, tail_ops.T, fam.cin), gen, dev)
+    bit_identical("exact-sum", fam, h, fam.prepare(tail, q8_calib=h[:16]))
 
 
 def up1_sum_errors(dev) -> None:
     """Phase 3b: f32 sums of SUM_K bf16 products, by mma.sync (K8's
     product) and one at a time in the twin's order, against the exact sum,
-    relative to |x| |w|; their sum must stay below K2_UP1_ERR."""
+    relative to |x| |w|: the twin's order must stay within its part of
+    up1_err (proven: a failure here is a fault of the check), mma.sync
+    within a tenth of its part."""
     rng = np.random.default_rng(SEED)
+    twin_err, mma_err = tail_ops.up1_err(SUM_K)
     for name, one_sign in (("both signs", False), ("one sign", True)):
         x, w = relayout.seeded_operands(2048, SUM_K, 128, "canonical", dev,
                                         rng)
@@ -646,12 +706,55 @@ def up1_sum_errors(dev) -> None:
         e_tc, e_seq = (float(((v.double() - exact).abs() / norm).max())
                        for v in (tc, seq))
         print(f"  up1 sums of {SUM_K} bf16 products, {name}: mma.sync "
-              f"{e_tc:.3e}, the twin's order {e_seq:.3e} of |x| |w|; K2's "
-              f"margin {K2_UP1_ERR:.3e} = {K2_UP1_ERR / (e_tc + e_seq):.1f}x "
-              f"their sum")
-        if e_tc + e_seq >= K2_UP1_ERR:
+              f"{e_tc:.3e} ({mma_err / e_tc:.1f}x below its part "
+              f"{mma_err:.3e}), the twin's order {e_seq:.3e} "
+              f"({twin_err / e_seq:.1f}x below its part {twin_err:.3e}) of "
+              f"|x| |w|; ERR {twin_err + mma_err:.3e}, the measured margin "
+              f"{MEASURED_ERR:.3e}")
+        if e_seq > twin_err or 10 * e_tc >= mma_err:
             raise AssertionError(f"f32 sum errors ({name}) reach K2's up1 "
                                  f"margin")
+
+
+def uncertain_share(fam: Family, h: torch.Tensor, tw, err: float) -> float:
+    """The share of up1's values on h (SHARE_TILES tiles) whose rounding
+    (int8 step in w8a8, bf16 in bf16) the margin err * |x| |w| leaves
+    uncertain: csrc/tail_common.cuh::certain, as the kernels' up1
+    epilogues apply it, on the twin's sums (a conv with TF32 off)."""
+    w1 = tw.conv_weights()[0]
+    with tail_ops._exact_f32(), torch.no_grad():
+        x = h[:SHARE_TILES].float().permute(0, 3, 1, 2)
+        z = tail_ops._conv(x, w1) + tw.b1.view(1, -1, 1, 1)
+        xn = tail_ops._conv(x * x, torch.ones_like(w1[:1])).sqrt()
+    wn = w1.flatten(1).norm(dim=1).view(1, -1, 1, 1) * (1 + 2.0 ** -10)
+    a = tw.a1.repeat(4).view(1, -1, 1, 1)
+    v = torch.where(z >= 0, z, a * z)
+    dz = xn * (err * (1 + 2.0 ** -10)) * wn + z.abs() * 2.0 ** -22
+    dv = dz * torch.clamp(a.abs(), min=1.0)
+    if tw.q8:
+        xq = v * tw.inv_su1
+        dx = dv * tw.inv_su1 * (1 + 2.0 ** -20) + xq.abs() * 2.0 ** -22
+        sure = (xq - torch.round(xq)).abs() < 0.5 - dx
+    else:
+        d = dv + v.abs() * 2.0 ** -22
+        sure = (v - d).to(torch.bfloat16) == (v + d).to(torch.bfloat16)
+    return float(1.0 - sure.float().mean())
+
+
+def margin_shares(fam: Family, model, inputs, tails, dev) -> None:
+    """Phase 3/3b (printed): uncertain_share of the family's up1 (K = 9 x
+    its channels) with its ERR, and with MEASURED_ERR, on the seeded input
+    (w8a8; K2 also bf16) and the one-sign input (w8a8)."""
+    err = sum(tail_ops.up1_err(9 * fam.cin))
+    modes = ("w8a8", "bf16") if fam.cin == tail_srgan.CIN else ("w8a8",)
+    cases = [("seeded", m, inputs[m], tails[m]) for m in modes]
+    cases.append(("one-sign", "w8a8", *one_sign_case(fam, model, dev)))
+    for what, mode, h, tw in cases:
+        new, old = (uncertain_share(fam, h, tw, e)
+                    for e in (err, MEASURED_ERR))
+        print(f"  {fam.kernel_name} up1 values left uncertain, {what} "
+              f"{mode}, {SHARE_TILES} tiles: {new:.4%} with ERR {err:.3e}, "
+              f"{old:.4%} with {MEASURED_ERR:.3e}")
 
 
 def exactly_rounded_up1(fam: Family, inputs, grid, tails) -> None:
@@ -1457,6 +1560,35 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
     return ms
 
 
+def k2_margin_cost(inputs, grid, tails) -> None:
+    """Phase 5: K2's w8a8 and bf16 u8 ms/frame with ERR and with MEASURED_ERR
+    (csrc/tail_srgan.cu built again with -DTAIL64_UP1_ERR; its launches
+    are not counted), in turns MEASURED_ERR, ERR, ERR, MEASURED_ERR; the two frames
+    must be equal (both are the twin's in w8a8)."""
+    ny, nx, cr = grid
+    t0 = time.perf_counter()
+    old = _build.load_variant("tail_srgan",
+                              {"TAIL64_UP1_ERR": f"{MEASURED_ERR.hex()}f"})
+    new = _build.load_library()
+    print(f"  K2 with the measured margin {MEASURED_ERR:.3e}: built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for mode in ("w8a8", "bf16"):
+        args = (inputs[mode], tails[mode], nx, cr, HEIGHT, WIDTH, False,
+                False)
+        ms = {id(old): [], id(new): []}
+        for lib in (old, new, new, old):
+            ms[id(lib)].append(card.cuda_ms(
+                lambda: tail_ops._launch("dgt_tail64", *args, lib=lib), 10))
+        same = torch.equal(tail_ops._launch("dgt_tail64", *args, lib=old),
+                           tail_ops._launch("dgt_tail64", *args, lib=new))
+        print(f"  K2 u8 {mode}: ERR {ms[id(new)][0]:.2f}, "
+              f"{ms[id(new)][1]:.2f} ms/frame; measured margin "
+              f"{ms[id(old)][0]:.2f}, {ms[id(old)][1]:.2f} ms/frame; frames "
+              f"{'equal' if same else 'differ'}")
+        if mode == "w8a8" and not same:
+            raise AssertionError("K2 w8a8's frame depends on its margin")
+
+
 def probe_times(dev, smi: str, errs: dict[str, float]) -> list[dict]:
     """Phase 5 for the probes: K9 at the JAX shape with the probe's and
     with LONG_ITERS iterations, and the roll chain on WIDE_ROWS rows (ms
@@ -1792,12 +1924,19 @@ def main() -> None:
     models = {f.name: seeded_model(f, rng, dev) for f in FAMILIES}
 
     # ---- phase 3 / 3b / 3c: kernels vs twins at the main-path shapes
-    checked = {f.name: kernel_vs_twin(label, f, models[f.name], dev)
-               for label, f in zip(("3", "3b"), FAMILIES)}
-    k2_build_and_exact_sums(models["srgan"], dev)
-    up1_sum_errors(dev)
-    exactly_rounded_up1(FAMILIES[1], checked["srgan"][0], checked["srgan"][1],
-                        checked["srgan"][2])
+    checked = {}
+    for label, fam in zip(("3", "3b"), FAMILIES):
+        model = models[fam.name]
+        checked[fam.name] = kernel_vs_twin(label, fam, model, dev)
+        build_report(fam)
+        one_sign_checks(fam, model, dev)
+        exact_sums(fam, model, dev)
+        if fam.name == "srgan":
+            up1_sum_errors(dev)
+        inputs, _, tails, _ = checked[fam.name]
+        margin_shares(fam, model, inputs, tails, dev)
+    inputs2, grid2, tails2, _ = checked["srgan"]
+    exactly_rounded_up1(FAMILIES[1], inputs2, grid2, tails2)
     x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
@@ -1849,6 +1988,7 @@ def main() -> None:
         ms.update(times(fam, models[fam.name], frames, inputs, grid, tails,
                         body, k_eng, t_eng))
 
+    k2_margin_cost(inputs2, grid2, tails2)
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
     probes = probe_times(dev, smi, probe_errs) + k8_k10_times(
         dev, probe_errs) + k7_k4_times(dev, {**k7_errs, **k4_errs},

@@ -1,8 +1,8 @@
 // Helpers shared by the fused tail kernels (tail.cu, tail_srgan.cu): the
-// modes and epilogues, the h patch load, bf16 unpacking, PReLU, int8
-// quantisation, dot products and dequantisation, and the two output
-// epilogues, each rounding where the plain PyTorch twin (ops/tail.py) does;
-// and the tensor-core building blocks (cp.async, ldmatrix, mma.sync).
+// modes and epilogues, bf16 unpacking, PReLU, int8 quantisation and
+// dequantisation, and the two output epilogues, each rounding where the
+// plain PyTorch twin (ops/tail.py) does; the tensor-core building blocks
+// (cp.async, ldmatrix, mma.sync); and up1's sum error bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,24 +27,6 @@ struct Args {
   float inv_su1, inv_sr;
   int nx, core_rows, height, width, bgr;
 };
-
-// The h patch of tile rows r0.. and cols c0.. (HR x HC pixels of PX bytes)
-// into shared memory in 16-byte pieces; zero outside the (tr, T) tile.
-template <int PX, int HR, int HC>
-__device__ __forceinline__ void load_patch(const unsigned char* hn, uint4* dst,
-                                           int r0, int c0, int tr, int tid,
-                                           int nt) {
-  constexpr int PARTS = PX / 16;
-  for (int i = tid; i < HR * HC * PARTS; i += nt) {
-    const int px = i / PARTS, part = i % PARTS;
-    const int y = r0 + px / HC, x = c0 + px % HC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (y < tr && x < T)
-      v = *reinterpret_cast<const uint4*>(hn + ((size_t)y * T + x) * PX +
-                                          part * 16);
-    dst[i] = v;
-  }
-}
 
 __device__ __forceinline__ float bf_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -75,38 +57,6 @@ __device__ __forceinline__ uint32_t pack_s8x4(const float* v, float inv) {
          ((uint32_t)(quant(v[1], inv) & 0xff) << 8) |
          ((uint32_t)(quant(v[2], inv) & 0xff) << 16) |
          ((uint32_t)(quant(v[3], inv) & 0xff) << 24);
-}
-// 4 channels of an activation: int8 q(v * inv) when Q8, else bf16
-template <bool Q8, typename act_t>
-__device__ __forceinline__ void put4(act_t* dst, const float* v, float inv) {
-  if constexpr (Q8)
-    *reinterpret_cast<uint32_t*>(dst) = pack_s8x4(v, inv);
-  else
-    *reinterpret_cast<uint2*>(dst) =
-        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
-}
-// w[k][q] = int32 word q of row k, k < 4, from rows `stride` words apart:
-// 4 consecutive int8 along the contraction of 4 output channels
-__device__ __forceinline__ void load_w16(int (*w)[4], const int* rows,
-                                         int stride) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int4 wv = *reinterpret_cast<const int4*>(rows + k * stride);
-    w[k][0] = wv.x; w[k][1] = wv.y; w[k][2] = wv.z; w[k][3] = wv.w;
-  }
-}
-// s[q] += the 16 int8 of `a` dotted with the 16 int8 of w[0..3][q]
-__device__ __forceinline__ void dp4a_16(int* s, const uint4 a,
-                                        const int (*w)[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    int v = s[q];
-    v = __dp4a((int)a.x, w[0][q], v);
-    v = __dp4a((int)a.y, w[1][q], v);
-    v = __dp4a((int)a.z, w[2][q], v);
-    v = __dp4a((int)a.w, w[3][q], v);
-    s[q] = v;
-  }
 }
 // int32 * scale + bias with two roundings, as the twin computes it
 __device__ __forceinline__ float dequant(int acc, float s, float b) {
@@ -180,6 +130,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// d = a . b, m16n8k16, bf16 operands, f32 sums from zero: the caller adds
+// d to its sums in f32, rounding to nearest, where mma_bf16's accumulation
+// would truncate
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
 // c += a . b, m16n8k32, int8 operands, int32 sums (exact)
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -188,6 +151,46 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// up1's sum error bound, relative to |x| |w|, for a sum of k <= 576 bf16
+// products (each exact in f32) that a kernel takes on the tensor cores and
+// compares with the twin's (ops/tail.py::_up1_sum): x the k inputs, w the
+// weights.
+// * The twin's order adds one product at a time, k - 1 roundings: within
+//   gamma_{k-1} sum |x w| <= gamma_{k-1} |x| |w| of the exact sum (Higham,
+//   Accuracy and Stability of Numerical Algorithms, 2nd ed., (4.4));
+//   gamma_n = n u / (1 - n u), u = 2**-24.  Proven; up1_err_twin, rounded
+//   up.
+// * mma.sync's f32 accumulation has no published bound.  It is allowed
+//   UP1_ERR_MMA = 2**-16, at least 10x the largest distance chip_smoke.py's
+//   phase 3b measures at k = 576 (inputs of one sign come closest: 1.13e-6
+//   on the H100, 13.5x below it), which the phase requires on every run.
+// ops/tail.py::up1_err mirrors both parts.
+constexpr float UP1_ERR_MMA = 0x1p-16f;
+__host__ __device__ constexpr float up1_err_twin(int k) {
+  return (float)((k - 1) * 0x1p-24 / (1.0 - (k - 1) * 0x1p-24) *
+                 (1.0 + 0x1p-20));
+}
+__host__ __device__ constexpr float up1_err(int k) {
+  return up1_err_twin(k) + UP1_ERR_MMA;
+}
+
+// Whether every u1 within dv of v = prelu(z, a) rounds as v does: to one
+// int8 step q(v * inv) (Q8; x = v * inv, the half-integers are the steps'
+// boundaries) or to one bf16 value.  The slack covers the roundings of
+// v * inv and v +- dv themselves.
+template <bool Q8>
+__device__ __forceinline__ bool certain(float v, float dv, float inv) {
+  if constexpr (Q8) {
+    const float x = __fmul_rn(v, inv);
+    const float dx = dv * inv * (1.f + 0x1p-20f) + fabsf(x) * 0x1p-22f;
+    return fabsf(x - rintf(x)) < 0.5f - dx;
+  } else {
+    const float d = dv + fabsf(v) * 0x1p-22f;
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v - d)) ==
+           __bfloat16_as_ushort(__float2bfloat16_rn(v + d));
+  }
 }
 
 // The C entry points' check of their arguments; cudaSuccess if valid.

@@ -73,18 +73,17 @@
 // tensor-core value only where its rounding is certain, taking both sums to
 // lie within ERR * |x| |w| of the exact one (x the position's 576 inputs,
 // w the channel's W1 column; |x| |w| >= sum |x w| by Cauchy-Schwarz).
-// ERR = 2**-18 (3.8e-6) is a measured margin, not a proof: at K = 576 on
-// the H100 the tensor core's f32 sums of bf16 products (K8's mma.sync
-// product) lay within 1.7e-7 |x| |w| of the exact sum and the twin's order
-// within 9.5e-8 on inputs of both signs, 1.13e-6 and 8.4e-7 where all
-// products have one sign (truncation adds up); chip_smoke.py's phase 3b
-// measures this on every run and fails if the two reach ERR.  The values
-// the margin leaves uncertain (a few % in w8a8, most in bf16, on the
-// seeded weights) are listed in shared memory and summed again in the
-// twin's order by fmaf, RPT a thread, while the slab's 9 weight slices
-// pass through the ring a second time (a repair cycle, at least one a
-// slab; more when there are more than NT * RPT).  u1 then equals the
-// twin's bit for bit.
+// ERR = tail_common.cuh::up1_err(576) = gamma_575 + 2**-16 = 4.95e-5: the
+// twin's part gamma_575 is proven, the tensor core's part 2**-16 is at
+// least 10x the largest mma.sync distance chip_smoke.py's phase 3b
+// measures (inputs of one sign come closest), which it checks.  The
+// values the margin leaves uncertain are listed in shared memory and summed
+// again in the twin's order by fmaf, RPT a thread, while the slab's 9
+// weight slices pass through the ring a second time (a repair cycle, at
+// least one a slab; more when there are more than NT * RPT).  u1 then
+// equals the twin's bit for bit.  (chip_smoke.py also builds this file with
+// -DTAIL64_UP1_ERR=0x1p-18f, the measured margin of its first version, to
+// time what the proven one costs.)
 //
 // Blocking: a block is BR x BC = 15 x 8 core positions (135 = 9 x 15 rows,
 // 120 = 15 x 8 cols): h patch 19 x 12 pixels, up1 at 17 x 10 = 170
@@ -129,7 +128,11 @@ constexpr int NT1 = (NP1 + 15) / 16;             // 11
 constexpr int NT2 = YR * YC / 16;                // 30
 constexpr int P2 = (NT2 + TPP - 1) / TPP;        // up2's M passes: 2
 constexpr int NST = 3;                           // weight ring stages
-constexpr float ERR = 0x1p-18f;                  // up1's sum error / S
+#ifdef TAIL64_UP1_ERR
+constexpr float ERR = TAIL64_UP1_ERR;            // up1's sum error / S
+#else
+constexpr float ERR = up1_err(9 * CIN);
+#endif
 static_assert(YC == 16, "an up2 m16 tile is one row of the 2x grid");
 static_assert(NT2 % MT == 0, "a warp's up2 tiles are all real or none");
 static_assert(NT1 <= TPP, "up1 runs one M pass");
@@ -302,23 +305,6 @@ __device__ __forceinline__ void zero(acc_t (&acc)[MT][8][4]) {
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
-}
-
-// Whether every u1 within dv of v = prelu(z, a) rounds as v does: to one
-// int8 step q(v * inv) (Q8; x = v * inv, the half-integers are the steps'
-// boundaries) or to one bf16 value.  The slack covers the roundings of
-// v * inv and v +- dv themselves.
-template <bool Q8>
-__device__ __forceinline__ bool certain(float v, float dv, float inv) {
-  if constexpr (Q8) {
-    const float x = __fmul_rn(v, inv);
-    const float dx = dv * inv * (1.f + 0x1p-20f) + fabsf(x) * 0x1p-22f;
-    return fabsf(x - rintf(x)) < 0.5f - dx;
-  } else {
-    const float d = dv + fabsf(v) * 0x1p-22f;
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v - d)) ==
-           __bfloat16_as_ushort(__float2bfloat16_rn(v + d));
-  }
 }
 
 template <int MODE, bool CANVAS>

@@ -1,7 +1,8 @@
 """Fused FSRGAN tail: up1 -> up2 -> out_conv -> tanh -> crop-stitch -> u8
 (or a bf16 canvas).
 
-Counterpart of denoise_gan_tpu/ops/pallas/tail.py.  Three pieces:
+Counterpart of denoise_gan_tpu/ops/pallas/tail.py.  Three pieces, and
+what the kernels' tests and reports share:
 
 * weight preparation (``prep_weights``, ``prep_weights_q8``,
   ``calibrate_tail_scales``, ``calibrate_h_scales``, ``prepare_tail``) ->
@@ -11,7 +12,14 @@ Counterpart of denoise_gan_tpu/ops/pallas/tail.py.  Three pieces:
 * their plain PyTorch twins ``fused_tail_u8_reference`` and
   ``fused_tail_canvas_reference``: the same function with quantisation and
   rounding at the same points.  A wrapper runs its twin for a tensor on the
-  CPU; on a CUDA tensor it launches the kernel or raises.
+  CPU; on a CUDA tensor it launches the kernel or raises;
+* the kernel's index maps in plain Python (``up2_rows``, ``out_rows``,
+  ``chunk_rows``, ``out_w3_fragments``), which the CPU tests hold against
+  the twin's convolutions; ``up1_err``, the sum error bound of
+  csrc/tail_common.cuh; ``one_sign_up1_`` and ``one_sign_h``, inputs on
+  which every up1 product has one sign; and ``sass_counts``,
+  ``ptxas_report`` and ``occupancy``, which report on a built tail kernel
+  (K1's and K2's).
 
 The weight preparation, the twin's arithmetic and the launch are written
 for any body width (CIN) and output-conv size; ops/tail_srgan.py reuses
@@ -49,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -343,12 +352,14 @@ def _tanh(y: torch.Tensor) -> torch.Tensor:
 
 
 def _up1_sum(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
-    """up1's 3x3 SAME conv, summed in the kernel's order: one product at a
-    time, tap-major then input channel, in f32.  The bf16 x bf16 products
-    are exact in f32, so the sums are bit for bit the kernel's, and w8a8
-    quantises the same u1.  (A conv library sums in its own order; that
-    moves a few u1 values across an int8 rounding boundary, and each such
-    flip moves nearby output bytes by up to 2 levels.)"""
+    """up1's 3x3 SAME conv, summed one product at a time, tap-major then
+    input channel, in f32: K1's bf16 mode sums in this order, and in w8a8
+    both kernels sum again in it every value whose int8 step their
+    tensor-core sum leaves uncertain.  The bf16 x bf16 products are exact
+    in f32, so the sums are bit for bit the kernels', and w8a8 quantises
+    the same u1.  (A conv library sums in its own order; that moves a few
+    u1 values across an int8 rounding boundary, and each such flip moves
+    nearby output bytes by up to 2 levels.)"""
     n, c, hh, ww = x.shape
     xp = F.pad(x, (1, 1, 1, 1))
     acc = x.new_zeros((n, w1.shape[0], hh, ww))
@@ -461,7 +472,8 @@ def fused_tail_u8_reference(h: torch.Tensor, tw: TailWeights, ny: int,
     h: (ny*nx, cr+4, 124, 32) body output, bf16 (int8 for qh8 weights,
     from :func:`quantize_h`).  Returns the (4*height, 4*width, 3) uint8
     frame.  Runs 16 tiles at a time to bound memory.  up1 sums in the
-    kernel's order (_up1_sum; qh8: integers, exact in any order); the other
+    kernel's order (_up1_sum, which its w8a8 repair returns to; qh8:
+    integers, exact in any order); the other
     convs run at full f32 precision (cuDNN and TF32 off), and the int8 ones
     sum integers in f32, which is exact since |sum| <= 127*127*288 < 2**24.
     So w8a8 and qh8 match the kernel bit for bit but for tanh; bf16 differs
@@ -488,17 +500,17 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _launch(entry: str, h: torch.Tensor, tw: TailWeights, nx: int, cr: int,
-            height: int, width: int, bgr: bool,
-            canvas: bool) -> torch.Tensor:
+            height: int, width: int, bgr: bool, canvas: bool,
+            lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """One launch of the tail kernel `entry` (a C function of the kernels'
-    library; both tails share its signature) on h's device; raises unless
-    that is a CUDA device."""
+    library, or of `lib`; both tails share its signature) on h's device;
+    raises unless that is a CUDA device."""
     require_cuda(h.device)
     if h.data_ptr() % 16:
         raise ValueError("h must be 16-byte aligned")
     from denoise_gan_tpu_torch.ops._build import load_library
 
-    fn = getattr(load_library(), entry)
+    fn = getattr(lib or load_library(), entry)
     out = torch.empty((4 * height, 4 * width, 3),
                       dtype=torch.bfloat16 if canvas else torch.uint8,
                       device=h.device)
@@ -548,3 +560,182 @@ def fused_tail_canvas(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
     return run_kernel("fused_tail_canvas", launch_counts, "dgt_tail",
                       fused_tail_canvas_reference, CIN, h, tw, ny, nx,
                       height, width, bgr, canvas=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's index maps (csrc/tail.cu), in plain Python
+
+BLOCK = (15, 8)         # core rows x cols of a block (csrc/tail.cu BR, BC)
+CHUNK = 8               # up2's 2x rows a chunk (CH)
+
+
+def up2_rows(br: int = BLOCK[0], bc: int = BLOCK[1]) -> np.ndarray:
+    """up2's A rows in a block: for each position (Y, X) of its
+    (2br+2) x (2bc+2) 2x grid, row-major, and tap (du, dv), the u1 row it
+    reads as (u1 position i*(bc+2) + j, phase block a*2 + b): d1 (Y+du,
+    X+dv) is U1 ((Y+du)/2, (X+dv)/2), phase ((Y+du)&1, (X+dv)&1).  U1
+    position (i, j) is tile (r0+1+i, c0+1+j) of a block at core (r0, c0),
+    and up2's output (Y, X) is the 2x tile position (2r0+3+Y, 2c0+3+X).
+    Shape (positions, 9, 2)."""
+    y, x = np.divmod(np.arange((2 * br + 2) * (2 * bc + 2)), 2 * bc + 2)
+    du, dv = np.divmod(np.arange(9), 3)
+    d, e = y[:, None] + du, x[:, None] + dv
+    return np.stack([(d >> 1) * (bc + 2) + (e >> 1), (d & 1) * 2 + (e & 1)],
+                    axis=-1)
+
+
+def out_rows(br: int = BLOCK[0], bc: int = BLOCK[1]) -> np.ndarray:
+    """The output conv's A rows in a block: for each output pixel (oy, ox)
+    of its 4br x 4bc, row-major, and tap (dy, dx), (R row, R column, 1 where
+    the int8 modes read R quantised from its bf16 copy, else 0).  R row rho,
+    column kappa hold up2's output (Y, X) at phase (a, b) = (rho&1,
+    kappa&1), fine tile pixel (4r0+6+rho, 4c0+6+kappa); output (oy, ox) is
+    fine tile pixel (8+4r0+oy, 8+4c0+ox), tile-local column 4j + (ox & 3).
+    Shape (pixels, 9, 3)."""
+    oy, ox = np.divmod(np.arange(16 * br * bc), 4 * bc)
+    dy, dx = np.divmod(np.arange(9), 3)
+    f = ox[:, None] % 4
+    edge = ((dx == 0) & (f == 0)) | ((dx == 2) & (f == 3))
+    return np.stack([np.broadcast_to(oy[:, None] + 1 + dy, edge.shape),
+                     ox[:, None] + 1 + dx, edge.astype(np.int64)], axis=-1)
+
+
+def chunk_rows(br: int = BLOCK[0], ch: int = CHUNK
+               ) -> list[tuple[range, range]]:
+    """The kernel's chunks: (R rows that chunk k's up2 writes, output rows
+    that its output conv then computes), the R rows in a ring of 2ch + 2."""
+    outs, lo = [], 0
+    for k in range((2 * br + 2) // ch):
+        hi = min(2 * ch * (k + 1) - 4, 4 * br - 1)
+        outs.append((range(2 * ch * k, 2 * ch * (k + 1)), range(lo, hi + 1)))
+        lo = hi + 1
+    return outs
+
+
+def out_w3_fragments(tw: TailWeights) -> np.ndarray:
+    """The output conv's B fragments as the kernel keeps them, N = 3
+    padded to 8: for each k-step (int8 one a tap, bf16 two) and lane
+    (g, t), two 32-bit words of column g (zero for g >= 3): int8 words
+    8s + t and 8s + 4 + t of w3 (3, 72); bf16 the pairs (k, k + 1) and
+    (k + 8, k + 9), k = 16s + 2t, of w3 (288, 3), the lower k in the low
+    half.  Shape (steps, 32, 2) uint32."""
+    g, t = np.divmod(np.arange(32), 4)
+    if tw.q8:
+        w = tw.w3.cpu().contiguous().view(torch.int32).numpy().view(np.uint32)
+        s = np.arange(9)[:, None]
+        cols = np.minimum(g, 2)
+        frag = np.stack([w[cols, 8 * s + t], w[cols, 8 * s + 4 + t]], -1)
+    else:
+        w = tw.w3.cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+        w = w.astype(np.uint32)
+        k = 16 * np.arange(18)[:, None] + 2 * t
+        cols = np.minimum(g, 2)
+        frag = np.stack([w[k, cols] | w[k + 1, cols] << 16,
+                         w[k + 8, cols] | w[k + 9, cols] << 16], -1)
+    return np.where((g < 3)[None, :, None], frag, 0).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# up1's sum error bound, and inputs that test it
+
+# the tensor core's part of up1's sum error bound (tail_common.cuh)
+UP1_ERR_MMA = 2.0 ** -16
+
+
+def up1_err(k: int) -> tuple[float, float]:
+    """(the twin's part, the tensor core's part) of up1's sum error bound
+    relative to |x| |w| for k <= 576 bf16 products, as
+    csrc/tail_common.cuh::up1_err: gamma_{k-1} = (k-1) u / (1 - (k-1) u),
+    u = 2**-24, rounded up, proven for the twin's order (recursive
+    summation, one rounding a product); UP1_ERR_MMA, an allowance that
+    chip_smoke.py's phase 3b holds at 10x what it measures."""
+    n = (k - 1) * 2.0 ** -24
+    return float(np.float32(n / (1 - n) * (1 + 2.0 ** -20))), UP1_ERR_MMA
+
+
+# the mean of one_sign_h's values: 2 E|N(0, 1)|
+ONE_SIGN_H_MEAN = 2.0 * math.sqrt(2.0 / math.pi)
+
+
+@torch.no_grad()
+def one_sign_up1_(tail: nn.Module) -> nn.Module:
+    """Make every up1 weight of the tail (FSRGANTail, SRGANTail) its
+    magnitude, in place, so that with ``one_sign_h`` every up1 product is
+    >= 0: where rounding errors add up instead of cancelling.  The bias is
+    set to minus the sum's mean on those inputs, so u1 has both signs and
+    the frame is not flat, and the large sums cancel against it: u1's
+    rounding sees their errors whole.  Returns the tail."""
+    conv = tail.up1.Conv_0
+    conv.weight.abs_()
+    conv.bias.copy_(-ONE_SIGN_H_MEAN * conv.weight.sum(dim=(1, 2, 3)))
+    return tail
+
+
+def one_sign_h(shape: tuple[int, ...], generator: torch.Generator,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    """bf16 body-output tiles >= 0 at the top of the body's range: |N(0,
+    1)| times 2 (mean ONE_SIGN_H_MEAN)."""
+    return (torch.randn(shape, generator=generator).abs() * 2.0).to(
+        device, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the built kernels (K1 "tail_kernel", K2 "tail64_kernel")
+
+def sass_counts(kernel: str) -> dict[tuple[str, bool], dict[str, int]]:
+    """IMMA and HMMA instructions (the tensor-core products) in each
+    instantiation of the tail kernel named `kernel`, by (mode, canvas), from
+    the built library's SASS (``_build.sass_functions``); {} where the
+    toolkit has no cuobjdump."""
+    from denoise_gan_tpu_torch.ops import _build
+
+    counts = {}
+    for name, block in _build.sass_functions().items():
+        m = re.search(rf"\d{kernel}ILi(\d)ELb(\d)E", name)
+        if m:
+            lines = block.splitlines()
+            counts[(MODES[int(m[1])], m[2] == "1")] = {
+                op: sum(op in line for line in lines)
+                for op in ("IMMA", "HMMA")}
+    return counts
+
+
+def occupancy(entry: str, mode: str, canvas: bool) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, resident blocks an SM) of a tail
+    kernel in `mode` and epilogue, as its launch sets them, from the C
+    function `entry` (dgt_tail_occupancy, dgt_tail64_occupancy); needs the
+    card."""
+    from denoise_gan_tpu_torch.ops._build import load_library
+
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = getattr(load_library(), entry)(
+        MODES.index(mode), int(canvas), ctypes.byref(smem),
+        ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return smem.value, blocks.value
+
+
+def ptxas_report(kernel: str) -> dict[tuple[str, bool], dict[str, int]]:
+    """Registers and spill bytes of each instantiation of the tail kernel
+    named `kernel`, by (mode, canvas), from the ptxas report of the build
+    made in this process (``_build.build_log``); {} where this process
+    built nothing."""
+    from denoise_gan_tpu_torch.ops import _build
+
+    report, key = {}, None
+    for line in _build.build_log.splitlines():
+        m = re.search(
+            rf"Function properties for \S*\d{kernel}ILi(\d)ELb(\d)E", line)
+        if m:
+            key = (MODES[int(m[1])], m[2] == "1")
+            report[key] = {}
+        elif key and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            report[key].update(stack=nums[0], spill_stores=nums[1],
+                               spill_loads=nums[2])
+        elif key and "Used" in line and "registers" in line:
+            report[key]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return report

@@ -28,22 +28,19 @@ in w8a8 and qh8), exact in any order, and bf16 x bf16 -> f32 (up1 in bf16
 and w8a8, up2 in bf16) in its own order.  The twins sum up1 in K1's order
 (ops/tail.py::_up1_sum); the kernel sums again, in that order, each u1
 value whose int8 step (w8a8) or bf16 rounding (bf16) its tensor-core sum
-leaves uncertain, so its u1 is the twin's.  ``dyadic_up1_`` and
-``dyadic_h`` draw inputs on which every f32 partial sum of up1 is exact,
-so that any order gives the twin's u1.  ``sass_counts``, ``ptxas_report``
-and ``occupancy`` report on the built kernel.
+leaves uncertain (within ops/tail.py::up1_err), so its u1 is the twin's.
+``dyadic_up1_`` and ``dyadic_h`` draw inputs on which every f32 partial
+sum of up1 is exact, so that any order gives the twin's u1; ops/tail.py::
+one_sign_up1_ and one_sign_h those where errors add up.
 """
 
 from __future__ import annotations
-
-import ctypes
-import re
 
 import torch
 
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops.tail import (
-    MODES, TailWeights, mode_counts, prepare_tail, run_kernel, run_twin,
+    TailWeights, mode_counts, prepare_tail, run_kernel, run_twin,
 )
 
 CIN = 64         # SRGAN body output channels
@@ -144,62 +141,3 @@ def dyadic_h(shape: tuple[int, ...], generator: torch.Generator,
     """bf16 body-output tiles on the grid k / H_DEN, |k| <= GRID_MAX."""
     k = torch.randint(-GRID_MAX, GRID_MAX + 1, shape, generator=generator)
     return (k.float() / H_DEN).to(device, torch.bfloat16)
-
-
-# ---------------------------------------------------------------------------
-# the built kernel
-
-def sass_counts() -> dict[tuple[str, bool], dict[str, int]]:
-    """IMMA and HMMA instructions (the tensor-core products) in each
-    instantiation of the kernel, by (mode, canvas), from the built
-    library's SASS (``_build.sass_functions``); {} where the toolkit has no
-    cuobjdump."""
-    from denoise_gan_tpu_torch.ops import _build
-
-    counts = {}
-    for name, block in _build.sass_functions().items():
-        m = re.search(r"tail64_kernelILi(\d)ELb(\d)E", name)
-        if m:
-            lines = block.splitlines()
-            counts[(MODES[int(m[1])], m[2] == "1")] = {
-                op: sum(op in line for line in lines)
-                for op in ("IMMA", "HMMA")}
-    return counts
-
-
-def occupancy(mode: str, canvas: bool) -> tuple[int, int]:
-    """(dynamic shared memory in bytes, resident blocks an SM) of the kernel
-    in `mode` and epilogue, as its launch sets them; needs the card."""
-    from denoise_gan_tpu_torch.ops._build import load_library
-
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    err = load_library().dgt_tail64_occupancy(
-        MODES.index(mode), int(canvas), ctypes.byref(smem),
-        ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"dgt_tail64_occupancy failed: CUDA error {err}")
-    return smem.value, blocks.value
-
-
-def ptxas_report() -> dict[tuple[str, bool], dict[str, int]]:
-    """Registers and spill bytes of each instantiation of the kernel, by
-    (mode, canvas), from the ptxas report of the build made in this process
-    (``_build.build_log``); {} where this process built nothing."""
-    from denoise_gan_tpu_torch.ops import _build
-
-    report, key = {}, None
-    for line in _build.build_log.splitlines():
-        m = re.search(r"Function properties for \S*tail64_kernelILi(\d)ELb(\d)E",
-                      line)
-        if m:
-            key = (MODES[int(m[1])], m[2] == "1")
-            report[key] = {}
-        elif key and "spill stores" in line:
-            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
-            report[key].update(stack=nums[0], spill_stores=nums[1],
-                               spill_loads=nums[2])
-        elif key and "Used" in line and "registers" in line:
-            report[key]["registers"] = int(
-                re.search(r"Used (\d+) registers", line)[1])
-            key = None
-    return report

@@ -6,6 +6,12 @@ tests/test_pallas_tail.py runs it.  The port runs in a child process
 On the u8 output: bf16 mode max |diff| <= 1 on < 1e-3 of the bytes
 (summation order only); w8a8 mode byte for byte, since its sums after up1
 are exact integers and the twin quantises R where the JAX kernel does.
+
+The CUDA kernel (csrc/tail.cu) cannot run here; its index maps can, as
+ops/tail.py writes them out: the GEMMs they define must give the twin's
+integer sums exactly.  So can up1's sum error bound (csrc/tail_common.cuh,
+ops/tail.py::up1_err) against the twin's summation order, and the
+one-sign inputs that test it.
 """
 
 import jax
@@ -188,3 +194,64 @@ def test_wrapper_validates_input(port, tail_params, h_tiles, bad):
     with pytest.raises(ValueError):
         port("wrapper_bad_input", tail_params, hf, NY, NX, NY * CR,
              NX * jtail.CORE, bad)
+
+
+# csrc/tail.cu's index maps, ops/tail.py::up1_err and the one-sign inputs
+
+@pytest.mark.parametrize("mode", ["w8a8", "qh8"])
+def test_kernel_index_maps_give_twin_sums(port, mode):
+    """up2's and the output conv's GEMMs over the rows that up2_rows and
+    out_rows gather (R's bf16-derived copy where out_rows says so), with W3
+    from out_w3_fragments, equal the twin's integer sums, at the blocks of
+    a 24-row tile's first and (ragged) last band and its first and last
+    column chunk; the padded B columns are zero."""
+    got = port("k1_index_maps", mode)
+    for part in ("up2", "out"):
+        compared, differ = got[part]
+        assert compared > 10000 and differ == 0, (part, got)
+    assert got["pad"] == 0
+
+
+def test_kernel_chunks_feed_the_output_conv_in_order(port):
+    """chunk_rows: the chunks write R rows 0.. once each, in order, and the
+    output rows 0..4BR-1 once each; every output row's R rows (oy+1..oy+3)
+    are written by its chunk or an earlier one and are among the last
+    2 CH + 2 written, the kernel's ring."""
+    chunks, br, ch = port("k1_chunk_rows")
+    ring = 2 * ch + 2
+    assert [r for w, _ in chunks for r in w] == list(range(2 * (2 * br + 2)))
+    assert [o for _, o in chunks for o in o] == list(range(4 * br))
+    for w, outs in chunks:
+        for oy in outs:
+            assert w[-1] - ring < oy + 1 and oy + 3 <= w[-1], (oy, w)
+
+
+def test_kernel_w3_fragments_bf16(port):
+    """bf16 out_w3_fragments unpacked: each k-step's 16 x 8 B matrix is
+    w3's rows with columns 3..7 zero."""
+    b, w3 = port("k1_w3_fragments_bf16")
+    np.testing.assert_array_equal(b[..., :3], w3.reshape(18, 16, 3))
+    assert not b[..., 3:].any()
+
+
+@pytest.mark.parametrize("one_sign", [False, True], ids=["mixed", "one_sign"])
+@pytest.mark.parametrize("k", [288, 576])
+def test_up1_err_bounds_the_twin_order(port, k, one_sign):
+    """Sequential f32 sums of k bf16 products (the twin's order) stay
+    within the twin's part of up1_err, gamma_{k-1}, relative to sum |x w|
+    and so to |x| |w|; the tensor core's part is 2**-16."""
+    rel_sum, rel_norm, (twin, mma) = port("up1_sum_errors", k, one_sign)
+    n = (k - 1) * 2.0 ** -24
+    assert twin == pytest.approx(n / (1 - n), rel=1e-5)
+    assert mma == 2.0 ** -16
+    assert 0 < rel_sum <= twin and rel_norm <= rel_sum, (rel_sum, twin)
+
+
+@pytest.mark.parametrize("family", ["fsrgan", "srgan"])
+def test_one_sign_inputs_keep_their_promise(port, family):
+    """one_sign_up1_ and one_sign_h: every up1 weight and h value >= 0, so
+    every up1 product is; the w8a8 twin's frame on them, calibrated on
+    them, is not flat."""
+    w_min, h_min, std_min = port("one_sign_inputs", family)
+    assert w_min >= 0 and h_min >= 0
+    assert std_min > 5

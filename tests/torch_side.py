@@ -366,6 +366,164 @@ def exact_sum_twin_orders(ny, nx, core_rows, seed=0):
     return _np(want), _np(got), float(want.float().std(dim=(0, 1)).min())
 
 
+# csrc/tail.cu's index maps (ops/tail.py) against the twin's convolutions
+
+def _d2s_block(x, row0, col0, rows, cols):
+    """x (C, H, W) at rows row0.. and cols col0.. (zero outside x), as
+    (rows, cols, C)."""
+    c, hh, ww = x.shape
+    out = x.new_zeros((rows, cols, c))
+    ys = torch.arange(row0, row0 + rows)
+    xs = torch.arange(col0, col0 + cols)
+    ok_y, ok_x = (ys >= 0) & (ys < hh), (xs >= 0) & (xs < ww)
+    sub = x[:, ys[ok_y]][:, :, xs[ok_x]].permute(1, 2, 0)
+    out[ok_y.nonzero()[:, 0][:, None], ok_x.nonzero()[:, 0][None, :]] = sub
+    return out
+
+
+@torch.no_grad()
+def k1_index_maps(mode, core_rows=24, seed=0):
+    """The kernel's GEMMs through ops/tail.py's index maps on one seeded
+    tile of `core_rows` core rows (int8 modes: w8a8, qh8), against the
+    twin's convolutions, at each block (r0, c0) in the tile's first and
+    last band and column chunk: up2's sums from u1 rows gathered by
+    up2_rows times W2, and the output conv's from R rows gathered by
+    out_rows (R's bf16-derived copy where it says so) times W3 unpacked
+    from out_w3_fragments, both in int64.  Returns {"up2": (values
+    compared, values that differ), "out": (...), "pad": the padded B
+    columns' largest |word|}."""
+    gen = torch.Generator().manual_seed(seed)
+    tail = _seeded_tail("fsrgan", gen)
+    h = (torch.randn((1, core_rows + 4, ttail.T, 32), generator=gen)
+         * 0.5).bfloat16()
+    tw = ttail.prepare_tail(tail, q8_calib=h, qh8=mode == "qh8")
+    x = (ttail.quantize_h(h, tw) if tw.qh8 else h).float().permute(0, 3, 1, 2)
+    w1, w2, w3 = tw.conv_weights()
+    bias = ttail._bias
+    with ttail._exact_f32():
+        c1 = (ttail._conv(x, w1) * bias(tw.s1) if tw.qh8
+              else ttail._up1_sum(x, w1)) + bias(tw.b1)
+        u1 = ttail._quant(ttail._prelu(timage.depth_to_space_nchw(c1, 2),
+                                       tw.a1), tw.inv_su1)
+        s2 = ttail._conv(u1, w2)
+        r = ttail._prelu(timage.depth_to_space_nchw(
+            s2 * bias(tw.s2) + bias(tw.b2), 2), tw.a2)
+        rq = ttail._quant(r, tw.inv_sr)
+        rbq = ttail._quant(ttail._bf16(r), tw.inv_sr)
+        s3 = ttail._conv(rq, w3) + ttail._edge_taps(rbq - rq, w3)
+    br, bc = ttail.BLOCK
+    w2t = w2.permute(2, 3, 1, 0).reshape(9, 32, 128).long()    # [tap][c][q]
+    frag = torch.from_numpy(ttail.out_w3_fragments(tw).astype(np.int64))
+    # word w of lane (g, t): int8 k = 4t.. (+16 for word 1) of column g
+    b3 = torch.zeros((9, 32, 8), dtype=torch.long)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for word in range(2):
+            for byte in range(4):
+                v = (frag[:, lane, word] >> (8 * byte)) & 0xff
+                b3[:, 16 * word + 4 * t + byte, g] = v - 256 * (v > 127)
+    up2_idx = torch.from_numpy(ttail.up2_rows())
+    out_idx = torch.from_numpy(ttail.out_rows())
+    th2, tw2 = 2 * (core_rows + 4), 2 * ttail.T
+    th4, tw4 = 2 * th2, 2 * tw2
+    got = {"up2": [0, 0], "out": [0, 0]}
+    for r0 in (0, (core_rows - 1) // br * br):
+        for c0 in (0, ttail.CORE - bc):
+            # u1 rows: position (i, j), channels ph*32 + t, from d1
+            d1 = _d2s_block(u1[0], 2 * (r0 + 1), 2 * (c0 + 1),
+                            2 * (br + 2), 2 * (bc + 2))
+            u = d1.reshape(br + 2, 2, bc + 2, 2, 32).permute(0, 2, 1, 3, 4)
+            u = u.reshape((br + 2) * (bc + 2), 128).long()
+            a = u.view(-1, 4, 32)[up2_idx[..., 0], up2_idx[..., 1]]
+            sums = torch.einsum("ptc,tcq->pq", a, w2t)
+            y, xx = np.divmod(np.arange(sums.shape[0]), 2 * bc + 2)
+            y, xx = torch.from_numpy(y), torch.from_numpy(xx)
+            ty, tx = 2 * r0 + 3 + y, 2 * c0 + 3 + xx
+            inside = (ty < th2) & (tx < tw2)
+            want = s2[0][:, ty[inside], tx[inside]].t().long()
+            got["up2"][0] += want.numel()
+            got["up2"][1] += int((sums[inside] != want).sum())
+            # R rows from the twin's R, (rho, kappa) = fine (4r0+6+rho, ..)
+            rr, rc = 4 * br + 4, 4 * bc + 4
+            rs = _d2s_block(rq[0], 4 * r0 + 6, 4 * c0 + 6, rr, rc).long()
+            rb = _d2s_block(rbq[0], 4 * r0 + 6, 4 * c0 + 6, rr, rc).long()
+            rows = torch.where(out_idx[..., 2:3].bool(),
+                               rb[out_idx[..., 0], out_idx[..., 1]],
+                               rs[out_idx[..., 0], out_idx[..., 1]])
+            sums = torch.einsum("ptc,tcn->pn", rows, b3)
+            oy, ox = np.divmod(np.arange(sums.shape[0]), 4 * bc)
+            oy, ox = torch.from_numpy(oy), torch.from_numpy(ox)
+            fy, fx = 8 + 4 * r0 + oy, 8 + 4 * c0 + ox
+            inside = (fy < th4 - 8) & (fx < tw4 - 8) & (oy + 4 * r0 <
+                                                        4 * core_rows)
+            want = s3[0][:, fy[inside], fx[inside]].t().long()
+            got["out"][0] += want.numel()
+            got["out"][1] += int((sums[inside][:, :3] != want).sum())
+    got = {k: tuple(v) for k, v in got.items()}
+    got["pad"] = int(b3[..., 3:].abs().max())
+    return got
+
+
+def k1_chunk_rows():
+    """ops/tail.py::chunk_rows as lists, and the kernel's block rows."""
+    return ([(list(w), list(o)) for w, o in ttail.chunk_rows()],
+            ttail.BLOCK[0], ttail.CHUNK)
+
+
+def k1_w3_fragments_bf16(seed=0):
+    """out_w3_fragments of bf16 tail weights unpacked: (the (18, 16, 8)
+    B matrices of the k-steps as f32, w3 (288, 3) as f32)."""
+    gen = torch.Generator().manual_seed(seed)
+    tw = ttail.prepare_tail(_seeded_tail("fsrgan", gen))
+    frag = ttail.out_w3_fragments(tw)
+    b = np.zeros((18, 16, 8), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for word in range(2):
+            for half in range(2):
+                bits = (frag[:, lane, word] >> (16 * half)) & 0xffff
+                b[:, 8 * word + 2 * t + half, g] = (
+                    bits.astype(np.uint32) << 16).view(np.float32)
+    return b, _np(tw.w3)
+
+
+def up1_sum_errors(k, one_sign, rows=256, cols=32, seed=0):
+    """f32 sums of k bf16 products one at a time in the twin's order
+    (ops/tail.py::_up1_sum's addcmul) against the float64 sum: the largest
+    |error| relative to sum |x w| and to |x| |w|, and ops/tail.py::up1_err
+    (k).  Inputs N(0, 1), or their magnitudes with `one_sign`."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((rows, k), generator=gen).bfloat16().float()
+    w = torch.randn((k, cols), generator=gen).bfloat16().float()
+    if one_sign:
+        x, w = x.abs(), w.abs()
+    acc = torch.zeros((rows, cols))
+    for i in range(k):
+        acc.addcmul_(x[:, i:i + 1], w[i:i + 1])
+    xd, wd = x.double(), w.double()
+    err = (acc.double() - xd @ wd).abs()
+    return (float((err / (xd.abs() @ wd.abs())).max()),
+            float((err / (xd.norm(dim=1, keepdim=True)
+                          * wd.norm(dim=0, keepdim=True))).max()),
+            ttail.up1_err(k))
+
+
+@torch.no_grad()
+def one_sign_inputs(family, ny=1, nx=1, core_rows=7, seed=0):
+    """ops/tail.py's one-sign inputs for `family`: (the smallest up1 weight,
+    the smallest h, the smallest per-channel std of the w8a8 twin's u8
+    frame with its int8 scales calibrated on that h)."""
+    gen = torch.Generator().manual_seed(seed)
+    tail = ttail.one_sign_up1_(_seeded_tail(family, gen))
+    cin, prepare = _FAMILIES[family][1:3]
+    h = ttail.one_sign_h((ny * nx, core_rows + 4, ttail.T, cin), gen)
+    tw = prepare(tail, q8_calib=h)
+    frame = _FAMILIES[family][4](h, tw, ny, nx, ny * core_rows,
+                                 nx * ttail.CORE)
+    return (float(tail.up1.Conv_0.weight.min()), float(h.float().min()),
+            float(frame.float().std(dim=(0, 1)).min()))
+
+
 def cuda_requests_without_gpu():
     """With CUDA absent: the messages of require_cuda() and
     resolve_device("cuda") (None if one did not raise RuntimeError), and
@@ -695,18 +853,37 @@ def cuda_kernel_vs_twin(ny, nx, core_rows, height, width, mode, bgr,
                            canvas)
 
 
-def cuda_exact_sum_w8a8(ny, nx, core_rows, height, width, canvas=False):
-    """As :func:`cuda_kernel_vs_twin` for the SRGAN tail in w8a8 (u8 RGB,
-    or the canvas), on inputs where every f32 partial sum of up1 is exact
-    in any order (ops/tail_srgan.py::dyadic_up1_ and dyadic_h, the int8
-    scales calibrated on that h)."""
+def cuda_exact_sum_w8a8(ny, nx, core_rows, height, width, canvas=False,
+                        family="srgan"):
+    """As :func:`cuda_kernel_vs_twin` for the tail of `family` in w8a8 (u8
+    RGB, or the canvas), on inputs where every f32 partial sum of up1 is
+    exact in any order (ops/tail_srgan.py::dyadic_up1_ and dyadic_h, the
+    int8 scales calibrated on that h)."""
     gen = torch.Generator().manual_seed(core_rows * 1000 + width)
-    tail = _seeded_tail("srgan", gen)
+    tail = _seeded_tail(family, gen)
     ttail_srgan.dyadic_up1_(tail, gen)
-    h = ttail_srgan.dyadic_h((ny * nx, core_rows + 4, ttail.T, 64), gen,
+    cin, prepare = _FAMILIES[family][1:3]
+    h = ttail_srgan.dyadic_h((ny * nx, core_rows + 4, ttail.T, cin), gen,
                              "cuda")
-    tw = ttail_srgan.prepare_tail64(tail.to("cuda"), q8_calib=h)
-    return _kernel_vs_twin("srgan", (h, tw, ny, nx, height, width, False),
+    tw = prepare(tail.to("cuda"), q8_calib=h)
+    return _kernel_vs_twin(family, (h, tw, ny, nx, height, width, False),
+                           canvas)
+
+
+def cuda_one_sign(ny, nx, core_rows, height, width, family, mode,
+                  canvas=False):
+    """As :func:`cuda_kernel_vs_twin` (u8 RGB, or the canvas) on
+    ops/tail.py's one-sign inputs: the seeded tail of `family` through
+    one_sign_up1_, h from one_sign_h, the int8 scales (w8a8, qh8)
+    calibrated on that h."""
+    gen = torch.Generator().manual_seed(core_rows * 1000 + width)
+    tail = ttail.one_sign_up1_(_seeded_tail(family, gen))
+    cin, prepare = _FAMILIES[family][1:3]
+    h = ttail.one_sign_h((ny * nx, core_rows + 4, ttail.T, cin), gen, "cuda")
+    tw = prepare(tail.to("cuda"), q8_calib=h, qh8=mode == "qh8")
+    if tw.qh8:
+        h = ttail.quantize_h(h, tw)
+    return _kernel_vs_twin(family, (h, tw, ny, nx, height, width, False),
                            canvas)
 
 
