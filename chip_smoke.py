@@ -19,6 +19,9 @@ Phases, each printed on its own line:
    (cuobjdump; the run fails if a mode's tensor-core products, HMMA for
    bf16 and w8a8's up1, IMMA for the int8 ones, count 0), its registers
    and spills (ptxas), dynamic shared memory and resident blocks an SM;
+   the parameters the kernel reports (dgt_tail_params: up1's margin by
+   mode, the block and chunk geometry), which must equal ops/tail.py's
+   (up1_err(288) in w8a8, BLOCK, CHUNK);
    w8a8 and qh8, u8 and canvas, on the one-sign input at 1080p
    (ops/tail.py::one_sign_up1_ on a copy of the seeded tail, one_sign_h,
    the int8 scales calibrated on it: every up1 product >= 0, the bias
@@ -28,25 +31,30 @@ Phases, each printed on its own line:
    twin (K1, like K2, keeps a tensor-core u1 in w8a8 only where its int8
    step is certain within ops/tail.py::up1_err(288) and sums the rest
    again in the twin's order); and (printed) the share of up1's values that
-   margin leaves uncertain on 16 seeded tiles and the one-sign input.
+   margin leaves uncertain on 16 seeded tiles and the one-sign input, by
+   the kernels' own test (tail_common.cuh::up1_certain, through
+   dgt_up1_certain) on the twin's sums.
 3b. K2 vs twin: the SRGAN fused tail kernel (csrc/tail_srgan.cu) the same
    way, at h (128, 139, 124, 64); w8a8 bit-identical as in K1 (the kernel
    sums up1 on the tensor cores and again, in the twin's order, where that
    leaves u1's rounding uncertain).  Then K2's build report as K1's (HMMA
-   for bf16 and w8a8's up1, IMMA for the int8 products); the one-sign and
-   exact-sum inputs as K1, bit-identical to the twin.  Then K2's up1
-   margin ERR = ops/tail.py::up1_err(SUM_K), the twin's part gamma_575
-   (proven) plus the tensor core's (an allowance of 2**-16, which K1's
-   margin shares): the largest distance, relative
-   to |x| |w|, of f32 sums of SUM_K bf16 products from the exact sum, for
-   bf16 mma.sync (K8's product kernel, relayout.py's seeded operands, 2048
-   x 128 sums) and for the twin's one-at-a-time order, on inputs of both
-   signs and of one sign; the run fails unless the twin's order stays
-   within its part and mma.sync within a tenth of its part.  The share of
-   up1's values that the margin leaves uncertain (summed again by the
-   repair), with this ERR and with the measured margin 2**-18, on 16 seeded
-   tiles (w8a8, bf16) and on the one-sign input (w8a8): the kernels' test
-   (tail_common.cuh::certain) applied to the twin's sums.  And (printed) how
+   for bf16 and w8a8's up1, IMMA for the int8 products; its w8a8 margin
+   must equal ops/tail.py::up1_err(576), its bf16 margin is the measured
+   2**-18, printed); the one-sign and exact-sum inputs as K1,
+   bit-identical to the twin.  Then the w8a8 margins ERR = the twin's part
+   gamma_{K-1} (proven) plus the tensor core's (an allowance of 2**-16),
+   as the kernels report them, at K in SUM_KS (K1's 288 and K2's 576): the
+   largest distance, relative to |x| |w|, of f32 sums of K bf16 products
+   from the exact sum, for bf16 mma.sync (K8's chained product kernel,
+   relayout.py's seeded operands, 2048 x 128 sums; K = 288 zero-padded to
+   K8's multiple of 64, the zero products adding nothing) and for the
+   twin's one-at-a-time order, on inputs of both signs and of one sign;
+   the run fails unless the twin's order stays within its part and
+   mma.sync within a tenth of its part, and (K = 576) unless the two
+   together stay below K2's measured bf16 margin 2**-18.  The share of up1's values that
+   the margin leaves uncertain (summed again by the repair) on 16 seeded
+   tiles (w8a8, bf16) and on the one-sign input (w8a8), as for K1.  And
+   (printed) how
    far the twin's frame moves when up1 is summed exactly (float64, rounded
    once) instead of in its order: w8a8 u8 and the bf16 canvas at 1080p,
    against the kernel-vs-twin bounds.
@@ -161,11 +169,7 @@ Phases, each printed on its own line:
    and frame borders.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
-   module on cuDNN), quantize_h and body ms/frame; K2's w8a8 and bf16 u8
-   with ERR and with the measured margin 2**-18 (csrc/tail_srgan.cu built a
-   second time with -DTAIL64_UP1_ERR, launched directly: not counted), in
-   turns (2**-18, ERR, ERR, 2**-18): what the proven bound costs; K3's
-   six launches per frame vs its plain version and the six plain
+   module on cuDNN), quantize_h and body ms/frame; K3's six launches per frame vs its plain version and the six plain
    InvertedResidual modules on cuDNN, and the K3-body engine's frames/s
    beside the plain-body engine's; each beside the card's name and power
    limit.  Each kernel's bound (the
@@ -271,13 +275,11 @@ SRGAN_BODY_GAIN = 0.1
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
-# phase 3b: K2's up1 margin (csrc/tail_srgan.cu, ERR): the kernel keeps a
-# tensor-core u1 value only where every sum within ERR * |x| |w| of it
-# rounds alike, ERR = the two parts of ops/tail.py::up1_err(SUM_K); SUM_K
-# is up1's depth, 9 taps x 64 channels.  MEASURED_ERR, the margin K2 had
-# before (measured, not proven), is built and timed beside it (phase 5).
-SUM_K = 576
-MEASURED_ERR = 2.0 ** -18
+# phase 3b: the w8a8 up1 margins (csrc/tail.cu, csrc/tail_srgan.cu): a
+# kernel keeps a tensor-core u1 value only where every sum within ERR *
+# |x| |w| of it rounds alike, ERR = the two parts of ops/tail.py::
+# up1_err(K); K is up1's depth, 9 taps x 32 (K1) or 64 (K2) channels.
+SUM_KS = {288: "fsrgan", 576: "srgan"}
 # phase 3b: the share of u1 values left uncertain is counted on these tiles
 SHARE_TILES = 16
 # phase 3d: K6 bf16 checked step by step for BF16_STEPS steps (then the
@@ -318,6 +320,7 @@ class Family:
     out_gain: float
     kernel_name: str
     occupancy: str
+    params: str
     products: dict
 
     def key(self, fn: Callable, mode: str) -> str:
@@ -332,7 +335,7 @@ FAMILIES = [
            tail_ops.launch_counts, ke.build_fsrgan_kernel_engine,
            ke.prepare_fsrgan_engine, "denoise_gan_tpu_torch/csrc/tail.cu",
            "denoise_gan_tpu/ops/pallas/tail.py:290", 1.0, 0.5,
-           "tail_kernel", "dgt_tail_occupancy",
+           "tail_kernel", "dgt_tail_occupancy", "dgt_tail_params",
            {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"), "qh8": ("IMMA",)}),
     Family("srgan", SRGANTail, 64, tail_srgan.prepare_tail64,
            tail_srgan.fused_tail64_u8, tail_srgan.fused_tail64_u8_reference,
@@ -342,7 +345,7 @@ FAMILIES = [
            ke.prepare_srgan_engine,
            "denoise_gan_tpu_torch/csrc/tail_srgan.cu",
            "denoise_gan_tpu/ops/pallas/tail_srgan.py:151", SRGAN_BODY_GAIN,
-           1.0, "tail64_kernel", "dgt_tail64_occupancy",
+           1.0, "tail64_kernel", "dgt_tail64_occupancy", "dgt_tail64_params",
            {"bf16": ("HMMA",), "w8a8": ("HMMA", "IMMA"), "qh8": ("IMMA",)}),
 ]
 
@@ -633,6 +636,37 @@ def build_report(fam: Family) -> None:
                 raise AssertionError(
                     f"{fam.kernel_name}<{mode}> runs no "
                     f"{'/'.join(fam.products[mode])}: {sass.get(key)}")
+    check_params(fam)
+
+
+def check_params(fam: Family) -> None:
+    """Phase 3/3b: the parameters the family's kernel reports, by mode,
+    against the Python side's: w8a8's up1 margin and its tensor-core part
+    equal to ops/tail.py::up1_err(9 x channels), no margin in qh8 (exact)
+    nor in K1's bf16 (up1 in the twin's order), a measured one in K2's
+    bf16; K1's block and chunk geometry equal to ops/tail.py's BLOCK and
+    CHUNK, which the index-map tests use."""
+    twin, mma = tail_ops.up1_err(9 * fam.cin)
+    want = {"w8a8": (float(np.float32(twin) + np.float32(mma)), mma),
+            "qh8": (0.0, 0.0)}
+    if fam.cin == tail_ops.CIN:
+        want["bf16"] = (0.0, 0.0)
+    geom = (*tail_ops.BLOCK, tail_ops.CHUNK) if fam.cin == tail_ops.CIN \
+        else None
+    for mode in MODES:
+        err, err_mma, got_geom = tail_ops.kernel_params(fam.params, mode)
+        print(f"  {fam.kernel_name}<{mode}> parameters: up1 margin "
+              f"{err:.4e} |x| |w| (tensor-core part {err_mma:.4e}), block "
+              f"{got_geom[0]}x{got_geom[1]}, chunk {got_geom[2]}")
+        if mode in want and (err, err_mma) != want[mode]:
+            raise AssertionError(f"{fam.kernel_name}<{mode}>'s up1 margin "
+                                 f"{(err, err_mma)} is not ops/tail.py's "
+                                 f"{want[mode]}")
+        if mode not in want and not err > 0:
+            raise AssertionError(f"{fam.kernel_name}<{mode}> has no margin")
+        if geom and got_geom != geom:
+            raise AssertionError(f"{fam.kernel_name}'s geometry {got_geom} "
+                                 f"is not ops/tail.py's {geom}")
 
 
 def bit_identical(what: str, fam: Family, h: torch.Tensor, tw) -> None:
@@ -683,78 +717,85 @@ def exact_sums(fam: Family, model, dev) -> None:
 
 
 def up1_sum_errors(dev) -> None:
-    """Phase 3b: f32 sums of SUM_K bf16 products, by mma.sync (K8's
-    product) and one at a time in the twin's order, against the exact sum,
-    relative to |x| |w|: the twin's order must stay within its part of
-    up1_err (proven: a failure here is a fault of the check), mma.sync
-    within a tenth of its part."""
+    """Phase 3b: f32 sums of K bf16 products, by mma.sync (K8's chained
+    product; K = 288 zero-padded to 320) and one at a time in the twin's
+    order, against the exact sum, relative to |x| |w|, at each K of
+    SUM_KS: the twin's order must stay within the twin's part of up1_err(K)
+    (proven: a failure here is a fault of the check), mma.sync within a
+    tenth of the tensor-core part that the kernel of depth K reports, and
+    at K = 576 the two together below K2's measured bf16 margin."""
     rng = np.random.default_rng(SEED)
-    twin_err, mma_err = tail_ops.up1_err(SUM_K)
-    for name, one_sign in (("both signs", False), ("one sign", True)):
-        x, w = relayout.seeded_operands(2048, SUM_K, 128, "canonical", dev,
-                                        rng)
-        if one_sign:
-            x, w = x.abs(), w.abs()
-        _, tc = relayout.matmul_form(x, w, "canonical", 1)
-        seq = torch.zeros_like(tc)
-        xf, wf = x.float(), w.float()
-        for k in range(SUM_K):
-            seq.addcmul_(xf[:, k:k + 1], wf[k:k + 1])
-        exact = x.double() @ w.double()
-        norm = x.double().norm(dim=1, keepdim=True) * \
-            w.double().norm(dim=0, keepdim=True)
-        e_tc, e_seq = (float(((v.double() - exact).abs() / norm).max())
-                       for v in (tc, seq))
-        print(f"  up1 sums of {SUM_K} bf16 products, {name}: mma.sync "
-              f"{e_tc:.3e} ({mma_err / e_tc:.1f}x below its part "
-              f"{mma_err:.3e}), the twin's order {e_seq:.3e} "
-              f"({twin_err / e_seq:.1f}x below its part {twin_err:.3e}) of "
-              f"|x| |w|; ERR {twin_err + mma_err:.3e}, the measured margin "
-              f"{MEASURED_ERR:.3e}")
-        if e_seq > twin_err or 10 * e_tc >= mma_err:
-            raise AssertionError(f"f32 sum errors ({name}) reach K2's up1 "
-                                 f"margin")
+    for k, fam_name in SUM_KS.items():
+        fam = next(f for f in FAMILIES if f.name == fam_name)
+        twin_err = tail_ops.up1_err(k)[0]
+        err, mma_err, _ = tail_ops.kernel_params(fam.params, "w8a8")
+        bf16_err = tail_ops.kernel_params(fam.params, "bf16")[0]
+        kp = -(-k // 64) * 64
+        for name, one_sign in (("both signs", False), ("one sign", True)):
+            x, w = relayout.seeded_operands(2048, k, 128, "canonical", dev,
+                                            rng)
+            if one_sign:
+                x, w = x.abs(), w.abs()
+            xp = torch.nn.functional.pad(x, (0, kp - k)).contiguous()
+            wp = torch.nn.functional.pad(w, (0, 0, 0, kp - k)).contiguous()
+            _, tc = relayout.matmul_form(xp, wp, "canonical", 1)
+            seq = torch.zeros_like(tc)
+            xf, wf = x.float(), w.float()
+            for i in range(k):
+                seq.addcmul_(xf[:, i:i + 1], wf[i:i + 1])
+            exact = x.double() @ w.double()
+            norm = x.double().norm(dim=1, keepdim=True) * \
+                w.double().norm(dim=0, keepdim=True)
+            e_tc, e_seq = (float(((v.double() - exact).abs() / norm).max())
+                           for v in (tc, seq))
+            print(f"  up1 sums of {k} bf16 products, {name}: mma.sync "
+                  f"{e_tc:.3e} ({mma_err / e_tc:.1f}x below its part "
+                  f"{mma_err:.3e}), the twin's order {e_seq:.3e} "
+                  f"({twin_err / e_seq:.1f}x below its part "
+                  f"{twin_err:.3e}) of |x| |w|; {fam.kernel_name}'s w8a8 "
+                  f"ERR {err:.3e}"
+                  + (f", bf16 margin {bf16_err:.3e} "
+                     f"({bf16_err / (e_tc + e_seq):.2f}x their sum)"
+                     if bf16_err else ""))
+            if e_seq > twin_err or 10 * e_tc >= mma_err or \
+                    (bf16_err and e_tc + e_seq >= bf16_err):
+                raise AssertionError(f"f32 sum errors of {k} products "
+                                     f"({name}) reach {fam.kernel_name}'s "
+                                     "up1 margin")
 
 
 def uncertain_share(fam: Family, h: torch.Tensor, tw, err: float) -> float:
     """The share of up1's values on h (SHARE_TILES tiles) whose rounding
     (int8 step in w8a8, bf16 in bf16) the margin err * |x| |w| leaves
-    uncertain: csrc/tail_common.cuh::certain, as the kernels' up1
-    epilogues apply it, on the twin's sums (a conv with TF32 off)."""
+    uncertain: the kernels' own test (ops/tail.py::up1_certain) on the
+    twin's sums (a conv with TF32 off), |x| and |w| rounded up as the
+    kernels round them."""
     w1 = tw.conv_weights()[0]
     with tail_ops._exact_f32(), torch.no_grad():
         x = h[:SHARE_TILES].float().permute(0, 3, 1, 2)
         z = tail_ops._conv(x, w1) + tw.b1.view(1, -1, 1, 1)
-        xn = tail_ops._conv(x * x, torch.ones_like(w1[:1])).sqrt()
+        xerr = tail_ops._conv(x * x, torch.ones_like(w1[:1])).sqrt() * \
+            (err * (1 + 2.0 ** -10))
     wn = w1.flatten(1).norm(dim=1).view(1, -1, 1, 1) * (1 + 2.0 ** -10)
     a = tw.a1.repeat(4).view(1, -1, 1, 1)
-    v = torch.where(z >= 0, z, a * z)
-    dz = xn * (err * (1 + 2.0 ** -10)) * wn + z.abs() * 2.0 ** -22
-    dv = dz * torch.clamp(a.abs(), min=1.0)
-    if tw.q8:
-        xq = v * tw.inv_su1
-        dx = dv * tw.inv_su1 * (1 + 2.0 ** -20) + xq.abs() * 2.0 ** -22
-        sure = (xq - torch.round(xq)).abs() < 0.5 - dx
-    else:
-        d = dv + v.abs() * 2.0 ** -22
-        sure = (v - d).to(torch.bfloat16) == (v + d).to(torch.bfloat16)
+    sure = tail_ops.up1_certain(z, a.expand_as(z), xerr.expand_as(z),
+                                wn.expand_as(z), tw.inv_su1, tw.q8)
     return float(1.0 - sure.float().mean())
 
 
 def margin_shares(fam: Family, model, inputs, tails, dev) -> None:
-    """Phase 3/3b (printed): uncertain_share of the family's up1 (K = 9 x
-    its channels) with its ERR, and with MEASURED_ERR, on the seeded input
-    (w8a8; K2 also bf16) and the one-sign input (w8a8)."""
-    err = sum(tail_ops.up1_err(9 * fam.cin))
+    """Phase 3/3b (printed): uncertain_share of the family's up1 with the
+    margin its kernel reports, on the seeded input (w8a8; K2 also bf16)
+    and the one-sign input (w8a8)."""
     modes = ("w8a8", "bf16") if fam.cin == tail_srgan.CIN else ("w8a8",)
     cases = [("seeded", m, inputs[m], tails[m]) for m in modes]
     cases.append(("one-sign", "w8a8", *one_sign_case(fam, model, dev)))
     for what, mode, h, tw in cases:
-        new, old = (uncertain_share(fam, h, tw, e)
-                    for e in (err, MEASURED_ERR))
+        err = tail_ops.kernel_params(fam.params, mode)[0]
         print(f"  {fam.kernel_name} up1 values left uncertain, {what} "
-              f"{mode}, {SHARE_TILES} tiles: {new:.4%} with ERR {err:.3e}, "
-              f"{old:.4%} with {MEASURED_ERR:.3e}")
+              f"{mode}, {SHARE_TILES} tiles: "
+              f"{uncertain_share(fam, h, tw, err):.4%} with margin "
+              f"{err:.3e}")
 
 
 def exactly_rounded_up1(fam: Family, inputs, grid, tails) -> None:
@@ -1560,35 +1601,6 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
     return ms
 
 
-def k2_margin_cost(inputs, grid, tails) -> None:
-    """Phase 5: K2's w8a8 and bf16 u8 ms/frame with ERR and with MEASURED_ERR
-    (csrc/tail_srgan.cu built again with -DTAIL64_UP1_ERR; its launches
-    are not counted), in turns MEASURED_ERR, ERR, ERR, MEASURED_ERR; the two frames
-    must be equal (both are the twin's in w8a8)."""
-    ny, nx, cr = grid
-    t0 = time.perf_counter()
-    old = _build.load_variant("tail_srgan",
-                              {"TAIL64_UP1_ERR": f"{MEASURED_ERR.hex()}f"})
-    new = _build.load_library()
-    print(f"  K2 with the measured margin {MEASURED_ERR:.3e}: built in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for mode in ("w8a8", "bf16"):
-        args = (inputs[mode], tails[mode], nx, cr, HEIGHT, WIDTH, False,
-                False)
-        ms = {id(old): [], id(new): []}
-        for lib in (old, new, new, old):
-            ms[id(lib)].append(card.cuda_ms(
-                lambda: tail_ops._launch("dgt_tail64", *args, lib=lib), 10))
-        same = torch.equal(tail_ops._launch("dgt_tail64", *args, lib=old),
-                           tail_ops._launch("dgt_tail64", *args, lib=new))
-        print(f"  K2 u8 {mode}: ERR {ms[id(new)][0]:.2f}, "
-              f"{ms[id(new)][1]:.2f} ms/frame; measured margin "
-              f"{ms[id(old)][0]:.2f}, {ms[id(old)][1]:.2f} ms/frame; frames "
-              f"{'equal' if same else 'differ'}")
-        if mode == "w8a8" and not same:
-            raise AssertionError("K2 w8a8's frame depends on its margin")
-
-
 def probe_times(dev, smi: str, errs: dict[str, float]) -> list[dict]:
     """Phase 5 for the probes: K9 at the JAX shape with the probe's and
     with LONG_ITERS iterations, and the roll chain on WIDE_ROWS rows (ms
@@ -1988,7 +2000,6 @@ def main() -> None:
         ms.update(times(fam, models[fam.name], frames, inputs, grid, tails,
                         body, k_eng, t_eng))
 
-    k2_margin_cost(inputs2, grid2, tails2)
     k3 = k3_times(models["fsrgan"], frames, x3, blocks3, k3_eng, plain_eng)
     probes = probe_times(dev, smi, probe_errs) + k8_k10_times(
         dev, probe_errs) + k7_k4_times(dev, {**k7_errs, **k4_errs},

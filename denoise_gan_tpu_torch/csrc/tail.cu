@@ -43,10 +43,12 @@
 //   levels.  So, as csrc/tail_srgan.cu, a tensor-core value is kept only
 //   where its int8 step is certain within ERR * |x| |w| of the sum (ERR =
 //   tail_common.cuh::up1_err(288): gamma_287, proven for the twin's order,
-//   plus the tensor core's allowance), and the uncertain values (a few %)
-//   are listed and summed again in the twin's order by fmaf while W1's
-//   tap slices, streamed by cp.async through a 2-stage ring, pass once
-//   more: u1 is the twin's bit for bit.  bf16 would leave most values
+//   plus the tensor core's allowance 2**-16, which chip_smoke.py's phase
+//   3b holds at 10x the mma.sync distance it measures at k = 288), and the
+//   uncertain values (a few %) are listed and summed again in the twin's
+//   order by fmaf while W1's tap slices, streamed by cp.async through a
+//   2-stage ring, pass once more (tail_common.cuh::repair): u1 is the
+//   twin's bit for bit.  bf16 would leave most values
 //   uncertain (its rounding grid is dense), so there up1 runs on the CUDA
 //   cores in the twin's order: a thread owns 8 channels x 11 positions (88
 //   sums), h is f32 in shared memory (pixel stride 33 floats, so the
@@ -137,6 +139,8 @@ struct Layout {
   static constexpr bool Q8 = MODE != BF16;       // u1, R, W2 int8
   static constexpr bool H8 = MODE == QH8;        // h, W1 int8
   static constexpr bool TC1 = MODE == W8A8;      // up1 on the tensor cores
+  // up1's margin, relative to |x| |w| (0: no repair)
+  static constexpr float ERR = TC1 ? up1_err(9 * CIN) : 0.f;
   static constexpr int u_px = Q8 ? C1 : 2 * C1;  // u1 bytes a position
   static constexpr int r_px = Q8 ? CIN : 2 * CIN;  // R bytes a pixel
   static constexpr int w_bytes = 9 * CIN * C1 * (Q8 ? 1 : 2);
@@ -228,13 +232,6 @@ __device__ __forceinline__ void load_slice(unsigned st, const void* w1,
     cp_async16(st + k * 256 + ((SWZ ? c ^ (k & 7) : c) << 4), wb + i * 16,
                true);
   }
-}
-// element (k, c) of a swizzled bf16 slice
-__device__ __forceinline__ float w16_at(const unsigned char* sl, int k,
-                                        int c) {
-  const uint16_t v = *reinterpret_cast<const uint16_t*>(
-      sl + k * 256 + (((c >> 3) ^ (k & 7)) << 4) + (c & 7) * 2);
-  return __uint_as_float((uint32_t)v << 16);
 }
 
 // c += a . b, m16n8k16 bf16, the product summed from zero and added to c
@@ -487,7 +484,6 @@ tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
     // (|x| the position's 288 inputs, |w| the channel's W1 column; both
     // sums lie that close to the exact one), else listed and summed again
     // in the twin's order while the slices pass once more (the repair).
-    constexpr float ERR = up1_err(9 * CIN);
     float* pix_sq = reinterpret_cast<float*>(smem + L::pix_off);
     float* colsq = reinterpret_cast<float*>(smem + L::col_off);
     int* ctl = reinterpret_cast<int*>(smem + L::ctl_off);
@@ -539,7 +535,7 @@ tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
           const unsigned char* slp = smem + L::w1_off + (q & 1) * L::slice;
 #pragma unroll
           for (int k = 16 * rg; k < 16 * rg + 16; ++k) {
-            const float w = w16_at(slp, k, cc);
+            const float w = w16_at<C1>(slp, k, cc);
             wsq = fmaf(w, w, wsq);
           }
         }
@@ -586,7 +582,7 @@ tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
           xnorm += pix_sq[Pp + (tap / 3) * HC + tap % 3];
-        xnorm = sqrtf(xnorm) * (ERR * (1.f + 0x1p-10f));
+        xnorm = sqrtf(xnorm) * (L::ERR * (1.f + 0x1p-10f));
 #pragma unroll
         for (int i = 0; i < NSLAB; ++i)
 #pragma unroll
@@ -597,14 +593,11 @@ tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
             for (int e = 0; e < 2; ++e) {
               const float z = acc[i][j][2 * hr + e] + cst[CB1 + c + e];
               const float a = cst[CA1 + ((c + e) & 31)];
-              const float v = prelu(z, a);
-              const float dz = xnorm * colsq[2 * C1 + c + e] +
-                               fabsf(z) * 0x1p-22f;
-              if (!certain<true>(v, dz * fmaxf(1.f, fabsf(a)), inv_su1)) {
-                const int k = atomicAdd(&ctl[0], 1);
-                if (k < CAP) list[k] = (uint16_t)(p * C1 + c + e);
-              }
-              pair |= (uint32_t)(quant(v, inv_su1) & 0xff) << (8 * e);
+              if (!up1_certain<true>(z, a, xnorm, colsq[2 * C1 + c + e],
+                                     inv_su1))
+                list_add(&ctl[0], list, CAP, p * C1 + c + e);
+              pair |= (uint32_t)(quant(prelu(z, a), inv_su1) & 0xff)
+                      << (8 * e);
             }
             *reinterpret_cast<uint16_t*>(
                 u1s + p * C1 + (((c >> 4) ^ u_swz<true>(p)) << 4) +
@@ -618,49 +611,24 @@ tail_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
     __syncthreads();
     const int listed = ctl[0];
     const int todo = listed > CAP ? NP1 * C1 : listed;
-    const int cycles = (todo + NT * RPT - 1) / (NT * RPT);
-#pragma unroll 1
-    for (int cyc = 0; cyc < cycles; ++cyc) {
-      int e[RPT];
-      float sum[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int k = (cyc * RPT + j) * NT + tid;
-        e[j] = k >= todo ? -1 : listed > CAP ? k : list[k];
-        sum[j] = 0.f;
-      }
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap, ++q) {
-        step();
-        const unsigned char* sl = smem + L::w1_off + (q & 1) * L::slice;
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          if (e[j] < 0) continue;
-          const int c = e[j] % C1;
-          const int P = pixel(e[j] / C1) + (tap / 3) * HC + tap % 3;
-          const unsigned char* hp = smem + L::x_off + P * 2 * CIN;
-#pragma unroll 2
-          for (int k8 = 0; k8 < 4; ++k8) {
-            float x[8];
-            unpack8(*reinterpret_cast<const uint4*>(
-                        hp + ((k8 ^ r_swz<false>(P)) << 4)), x);
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-              sum[j] = fmaf(x[i], w16_at(sl, 8 * k8 + i, c), sum[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        if (e[j] < 0) continue;
-        const int p = e[j] / C1, c = e[j] % C1;
-        u1s[p * C1 + (((c >> 4) ^ u_swz<true>(p)) << 4) + (c & 15)] =
-            (unsigned char)(quant(prelu(sum[j] + cst[CB1 + c],
-                                        cst[CA1 + (c & 31)]),
-                                  inv_su1) &
-                            0xff);
-      }
-    }
+    repair<CIN, C1, NT, RPT>(
+        repair_cycles<NT, RPT>(todo), listed, CAP, todo, list, tid,
+        [&]() {
+          step();
+          return smem + L::w1_off + (q++ & 1) * L::slice;
+        },
+        [&](int p, int tap, int& sw) {
+          const int P = pixel(p) + (tap / 3) * HC + tap % 3;
+          sw = r_swz<false>(P);
+          return smem + L::x_off + P * 2 * CIN;
+        },
+        [&](int p, int c, float sum) {
+          u1s[p * C1 + (((c >> 4) ^ u_swz<true>(p)) << 4) + (c & 15)] =
+              (unsigned char)(quant(prelu(sum + cst[CB1 + c],
+                                          cst[CA1 + (c & 31)]),
+                                    inv_su1) &
+                              0xff);
+        });
     cp_async_wait<0>();
     __syncthreads();
   } else {
@@ -943,4 +911,20 @@ extern "C" int dgt_tail_occupancy(int mode, int canvas, int* smem,
     case 4: return (int)occupancy<QH8, false>(smem, blocks);
     default: return (int)occupancy<QH8, true>(smem, blocks);
   }
+}
+
+// The kernel's parameters in a mode, as compiled: err[0] up1's margin
+// relative to |x| |w| (0: no repair), err[1] the tensor core's allowance
+// within it (tail_common.cuh::UP1_ERR_MMA); geom the block's core rows and
+// cols and up2's 2x rows a chunk (ops/tail.py::BLOCK, CHUNK mirror them).
+// Returns the cudaError_t.
+extern "C" int dgt_tail_params(int mode, float* err, int* geom) {
+  if (mode < BF16 || mode > QH8) return (int)cudaErrorInvalidValue;
+  err[0] = mode == BF16 ? Layout<BF16>::ERR
+           : mode == W8A8 ? Layout<W8A8>::ERR : Layout<QH8>::ERR;
+  err[1] = mode == W8A8 ? UP1_ERR_MMA : 0.f;
+  geom[0] = BR;
+  geom[1] = BC;
+  geom[2] = CH;
+  return (int)cudaSuccess;
 }

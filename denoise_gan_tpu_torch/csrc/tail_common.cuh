@@ -2,7 +2,8 @@
 // modes and epilogues, bf16 unpacking, PReLU, int8 quantisation and
 // dequantisation, and the two output epilogues, each rounding where the
 // plain PyTorch twin (ops/tail.py) does; the tensor-core building blocks
-// (cp.async, ldmatrix, mma.sync); and up1's sum error bound.
+// (cp.async, ldmatrix, mma.sync); up1's sum error bound, its certainty
+// test and the repair of the values it leaves uncertain.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -164,9 +165,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 //   up.
 // * mma.sync's f32 accumulation has no published bound.  It is allowed
 //   UP1_ERR_MMA = 2**-16, at least 10x the largest distance chip_smoke.py's
-//   phase 3b measures at k = 576 (inputs of one sign come closest: 1.13e-6
-//   on the H100, 13.5x below it), which the phase requires on every run.
-// ops/tail.py::up1_err mirrors both parts.
+//   phase 3b measures, at k = 288 (K1) and k = 576 (K2), both with K8's
+//   chained bf16 mma.sync product (inputs of one sign come closest), which
+//   the phase requires on every run.
+// ops/tail.py::up1_err mirrors both parts; the kernels report theirs
+// (dgt_tail_params, dgt_tail64_params) and chip_smoke.py holds the two
+// equal.
 constexpr float UP1_ERR_MMA = 0x1p-16f;
 __host__ __device__ constexpr float up1_err_twin(int k) {
   return (float)((k - 1) * 0x1p-24 / (1.0 - (k - 1) * 0x1p-24) *
@@ -190,6 +194,88 @@ __device__ __forceinline__ bool certain(float v, float dv, float inv) {
     const float d = dv + fabsf(v) * 0x1p-22f;
     return __bfloat16_as_ushort(__float2bfloat16_rn(v - d)) ==
            __bfloat16_as_ushort(__float2bfloat16_rn(v + d));
+  }
+}
+// Whether u1 = prelu(z, a) keeps the rounding of a tensor-core sum z + b1:
+// both that sum and the twin's lie within xerr * wn of the exact one (xerr
+// = ERR |x|, wn = |w|, each rounded up), plus z's own rounding.  The
+// kernels' up1 epilogues and dgt_up1_certain (tail_check.cu) apply it.
+template <bool Q8>
+__device__ __forceinline__ bool up1_certain(float z, float a, float xerr,
+                                            float wn, float inv) {
+  const float dz = xerr * wn + fabsf(z) * 0x1p-22f;
+  return certain<Q8>(prelu(z, a), dz * fmaxf(1.f, fabsf(a)), inv);
+}
+// entry e of the repair's list (count, then cap entries); past cap only
+// the count grows, and the repair takes every value
+__device__ __forceinline__ void list_add(int* count, uint16_t* list, int cap,
+                                         int e) {
+  const int k = atomicAdd(count, 1);
+  if (k < cap) list[k] = (uint16_t)e;
+}
+
+// element (k, c) of a shared bf16 weight slice of NC columns: row k,
+// 16-byte chunk c/8 ^ (k & 7)
+template <int NC>
+__device__ __forceinline__ float w16_at(const unsigned char* sl, int k,
+                                        int c) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(
+      sl + k * 2 * NC + (((c >> 3) ^ (k & 7)) << 4) + (c & 7) * 2);
+  return __uint_as_float((uint32_t)v << 16);
+}
+
+// The repair cycles for `todo` values, RPT a thread of NT.
+template <int NT, int RPT>
+__device__ __forceinline__ int repair_cycles(int todo) {
+  return (todo + NT * RPT - 1) / (NT * RPT);
+}
+// The repair of up1 (tail.cu, tail_srgan.cu): the values a tensor-core sum
+// left uncertain summed again one product at a time in the twin's order
+// (tap-major, then input channel: ops/tail.py::_up1_sum), RPT a thread a
+// cycle while W1's 9 tap slices (NC columns) pass through the kernel's
+// ring.  The list holds `listed` entries e = position * NC + channel; past
+// `cap` it overflowed and values 0..todo-1 are taken in order.  slice()
+// waits for the next tap's slice and returns it; pixel(p, tap, sw) the h
+// pixel (CIN bf16 values in 16-byte chunks, chunk XOR sw) that position p
+// reads at the tap; put(p, c, sum) stores u1.
+template <int CIN, int NC, int NT, int RPT, typename Slice, typename Pixel,
+          typename Put>
+__device__ __forceinline__ void repair(int cycles, int listed, int cap,
+                                       int todo, const uint16_t* list,
+                                       int tid, Slice slice, Pixel pixel,
+                                       Put put) {
+#pragma unroll 1
+  for (int cyc = 0; cyc < cycles; ++cyc) {
+    int e[RPT];
+    float sum[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int k = (cyc * RPT + j) * NT + tid;
+      e[j] = k >= todo ? -1 : listed > cap ? k : list[k];
+      sum[j] = 0.f;
+    }
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const unsigned char* sl = slice();
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        if (e[j] < 0) continue;
+        const int c = e[j] % NC;
+        int sw;
+        const unsigned char* hp = pixel(e[j] / NC, tap, sw);
+#pragma unroll 2
+        for (int k8 = 0; k8 < CIN / 8; ++k8) {
+          float x[8];
+          unpack8(*reinterpret_cast<const uint4*>(hp + ((k8 ^ sw) << 4)), x);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            sum[j] = fmaf(x[i], w16_at<NC>(sl, 8 * k8 + i, c), sum[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (e[j] >= 0) put(e[j] / NC, e[j] % NC, sum[j]);
   }
 }
 

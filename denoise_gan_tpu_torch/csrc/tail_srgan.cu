@@ -73,17 +73,22 @@
 // tensor-core value only where its rounding is certain, taking both sums to
 // lie within ERR * |x| |w| of the exact one (x the position's 576 inputs,
 // w the channel's W1 column; |x| |w| >= sum |x w| by Cauchy-Schwarz).
-// ERR = tail_common.cuh::up1_err(576) = gamma_575 + 2**-16 = 4.95e-5: the
-// twin's part gamma_575 is proven, the tensor core's part 2**-16 is at
-// least 10x the largest mma.sync distance chip_smoke.py's phase 3b
-// measures (inputs of one sign come closest), which it checks.  The
-// values the margin leaves uncertain are listed in shared memory and summed
-// again in the twin's order by fmaf, RPT a thread, while the slab's 9
-// weight slices pass through the ring a second time (a repair cycle, at
-// least one a slab; more when there are more than NT * RPT).  u1 then
-// equals the twin's bit for bit.  (chip_smoke.py also builds this file with
-// -DTAIL64_UP1_ERR=0x1p-18f, the measured margin of its first version, to
-// time what the proven one costs.)
+// * w8a8, whose contract is bit-identity: ERR = tail_common.cuh::
+//   up1_err(576) = gamma_575 + 2**-16 = 4.95e-5.  The twin's part
+//   gamma_575 is proven, the tensor core's part 2**-16 is at least 10x the
+//   largest mma.sync distance chip_smoke.py's phase 3b measures (inputs of
+//   one sign come closest), which it checks.
+// * bf16, whose contract is a statistical bound (u8 max 1 on < 1e-3 of the
+//   bytes, canvas within 2**-8 on < 2e-3 of the values), which a rare u1
+//   rounding apart from the twin's cannot break: ERR = ERR_BF16 = 2**-18,
+//   a measured margin (3.8e-6, 1.9x the largest sum of the two distances
+//   phase 3b measures).  bf16's rounding grid is dense: with the proven
+//   ERR the repair took 82% of u1 and the kernel 2.1x the time.
+// The values the margin leaves uncertain are listed in shared memory and
+// summed again in the twin's order by fmaf, RPT a thread, while the slab's
+// 9 weight slices pass through the ring a second time (a repair cycle, at
+// least one a slab; more when there are more than NT * RPT:
+// tail_common.cuh::repair).  In w8a8 u1 then equals the twin's bit for bit.
 //
 // Blocking: a block is BR x BC = 15 x 8 core positions (135 = 9 x 15 rows,
 // 120 = 15 x 8 cols): h patch 19 x 12 pixels, up1 at 17 x 10 = 170
@@ -94,7 +99,7 @@
 // in bf16).  Registers (ptxas): qh8 and w8a8 128 with 104-136 bytes of
 // stack for spills, under launch bounds for 2 blocks an SM (8 warps more
 // to hide barriers and latency than one block without spills has), bf16
-// 212, one block an SM.
+// 208, one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,11 +133,7 @@ constexpr int NT1 = (NP1 + 15) / 16;             // 11
 constexpr int NT2 = YR * YC / 16;                // 30
 constexpr int P2 = (NT2 + TPP - 1) / TPP;        // up2's M passes: 2
 constexpr int NST = 3;                           // weight ring stages
-#ifdef TAIL64_UP1_ERR
-constexpr float ERR = TAIL64_UP1_ERR;            // up1's sum error / S
-#else
-constexpr float ERR = up1_err(9 * CIN);
-#endif
+constexpr float ERR_BF16 = 0x1p-18f;             // bf16's up1 margin
 static_assert(YC == 16, "an up2 m16 tile is one row of the 2x grid");
 static_assert(NT2 % MT == 0, "a warp's up2 tiles are all real or none");
 static_assert(NT1 <= TPP, "up1 runs one M pass");
@@ -143,6 +144,8 @@ struct Layout {
   static constexpr bool Q8 = MODE != BF16;       // u1, R, W2 int8
   static constexpr bool H8 = MODE == QH8;        // h, W1 int8
   static constexpr bool REPAIR = !H8;            // up1 sums bf16 products
+  // up1's margin, relative to |x| |w| (0: no repair)
+  static constexpr float ERR = H8 ? 0.f : Q8 ? up1_err(9 * CIN) : ERR_BF16;
   static constexpr int RPT = Q8 ? 2 : 8;         // candidates a thread
   static constexpr int CAP = REPAIR ? (Q8 ? 4096 : NV1) : 0;  // list
   static constexpr int h_px = H8 ? CIN : 2 * CIN;        // bytes a pixel
@@ -185,13 +188,6 @@ __device__ __forceinline__ int u_swz(int p, int s) {
 // int8 weight slice row kw (4 k a word row): 0, 1, 4, 5 for kw % 4 = 0..3
 __device__ __forceinline__ int w8_swz(int kw) {
   return (kw & 1) | ((kw & 2) << 1);
-}
-// element (k, c) of a bf16 weight slice: row k, chunk c/8 ^ (k & 7)
-__device__ __forceinline__ float w16_at(const unsigned char* sl, int k,
-                                        int c) {
-  const uint16_t v = *reinterpret_cast<const uint16_t*>(
-      sl + k * 128 + (((c >> 3) ^ (k & 7)) << 4) + (c & 7) * 2);
-  return __uint_as_float((uint32_t)v << 16);
 }
 // u1 value v of position p, slab s, channel c: int8 q(v * inv) or bf16
 template <bool Q8>
@@ -461,7 +457,7 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
           const unsigned char* sl = smem + L::w_off + (q % NST) * L::stage;
 #pragma unroll
           for (int k = 16 * rg; k < 16 * rg + 16; ++k) {
-            const float w = w16_at(sl, k, cc);
+            const float w = w16_at<CIN>(sl, k, cc);
             wsq = fmaf(w, w, wsq);
           }
         }
@@ -491,8 +487,9 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
       // epilogue: u1 for the lane's rows g, g + 8 of each tile, 16
       // channels.  In the repair modes a value whose rounding is uncertain
       // goes to the list too (its stored value is overwritten later): both
-      // sums lie within ERR * |x| |w| >= ERR * sum|x w| (Cauchy-Schwarz) of
-      // the exact sum, x the position's 576 inputs, w the channel's column.
+      // sums lie within L::ERR * |x| |w| >= L::ERR * sum|x w|
+      // (Cauchy-Schwarz) of the exact sum, x the position's 576 inputs, w
+      // the channel's column.
       if (active) {
         const float* b1s = cst + CB1 + s * CIN;
 #pragma unroll
@@ -528,7 +525,7 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
 #pragma unroll
               for (int tap = 0; tap < 9; ++tap)
                 xnorm += pix_sq[P0 + (tap / 3) * HC + tap % 3];
-              xnorm = sqrtf(xnorm) * (ERR * (1.f + 0x1p-10f));
+              xnorm = sqrtf(xnorm) * (L::ERR * (1.f + 0x1p-10f));
 #pragma unroll
               for (int j = 0; j < 8; ++j) {
                 const int c = 8 * j + 2 * t;
@@ -543,12 +540,8 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
 #pragma unroll
                 for (int u = 0; u < 2; ++u) {
                   v[u] = prelu(z[u], a[u]);
-                  const float dz = xnorm * w[u] + fabsf(z[u]) * 0x1p-22f;
-                  if (!certain<Q8>(v[u], dz * fmaxf(1.f, fabsf(a[u])),
-                                   inv_su1)) {
-                    const int k = atomicAdd(&ctl[0], 1);
-                    if (k < L::CAP) list[k] = (uint16_t)(p * CIN + c + u);
-                  }
+                  if (!up1_certain<Q8>(z[u], a[u], xnorm, w[u], inv_su1))
+                    list_add(&ctl[0], list, L::CAP, p * CIN + c + u);
                 }
                 if constexpr (Q8)      // w8a8: int8 pairs
                   *reinterpret_cast<uint16_t*>(
@@ -570,48 +563,24 @@ tail64_kernel(const unsigned char* __restrict__ h, void* __restrict__ outv,
         __syncthreads();
         const int listed = ctl[0];
         const int todo = listed > L::CAP ? NV1 : listed;
-        const int cycles = max(1, (todo + NT * L::RPT - 1) / (NT * L::RPT));
+        const int cycles = max(1, repair_cycles<NT, L::RPT>(todo));
         if (tid == 0) ctl[1 + s] = cycles;
-#pragma unroll 1
-        for (int cyc = 0; cyc < cycles; ++cyc) {
-          int e[L::RPT];
-          float sum[L::RPT];
-#pragma unroll
-          for (int j = 0; j < L::RPT; ++j) {
-            const int k = (cyc * L::RPT + j) * NT + tid;
-            e[j] = k >= todo ? -1 : listed > L::CAP ? k : list[k];
-            sum[j] = 0.f;
-          }
-#pragma unroll 1
-          for (int tap = 0; tap < 9; ++tap, ++q) {
-            step(q);
-            const unsigned char* sl = smem + L::w_off + (q % NST) * L::stage;
-#pragma unroll
-            for (int j = 0; j < L::RPT; ++j) {
-              if (e[j] < 0) continue;
-              const int p = e[j] / CIN, c = e[j] % CIN;
+        repair<CIN, CIN, NT, L::RPT>(
+            cycles, listed, L::CAP, todo, list, tid,
+            [&]() {
+              step(q);
+              return smem + L::w_off + (q++ % NST) * L::stage;
+            },
+            [&](int p, int tap, int& sw) {
               const int P = (p / UC + tap / 3) * HC + p % UC + tap % 3;
-              const unsigned char* hp = smem + L::h_off + P * L::h_px;
-#pragma unroll 2
-              for (int k8 = 0; k8 < 8; ++k8) {
-                float x[8];
-                unpack8(*reinterpret_cast<const uint4*>(
-                            hp + ((k8 ^ h_swz<H8>(P)) << 4)), x);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                  sum[j] = fmaf(x[i], w16_at(sl, 8 * k8 + i, c), sum[j]);
-              }
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < L::RPT; ++j) {
-            if (e[j] < 0) continue;
-            const int p = e[j] / CIN, c = e[j] % CIN;
-            put_u1<Q8>(u1s, p, s, c,
-                       prelu(sum[j] + cst[CB1 + s * CIN + c], cst[CA1 + c]),
-                       inv_su1);
-          }
-        }
+              sw = h_swz<H8>(P);
+              return smem + L::h_off + P * L::h_px;
+            },
+            [&](int p, int c, float sum) {
+              put_u1<Q8>(u1s, p, s, c,
+                         prelu(sum + cst[CB1 + s * CIN + c], cst[CA1 + c]),
+                         inv_su1);
+            });
       }
     }
   }
@@ -802,4 +771,20 @@ extern "C" int dgt_tail64_occupancy(int mode, int canvas, int* smem,
     case 4: return (int)occupancy<QH8, false>(smem, blocks);
     default: return (int)occupancy<QH8, true>(smem, blocks);
   }
+}
+
+// The kernel's parameters in a mode, as compiled: err[0] up1's margin
+// relative to |x| |w| (0: no repair), err[1] the tensor core's allowance
+// within it (tail_common.cuh::UP1_ERR_MMA; 0 where the margin is measured,
+// not built from the bound); geom the block's core rows and cols, and 0
+// (no chunks).  Returns the cudaError_t.
+extern "C" int dgt_tail64_params(int mode, float* err, int* geom) {
+  if (mode < BF16 || mode > QH8) return (int)cudaErrorInvalidValue;
+  err[0] = mode == BF16 ? Layout<BF16>::ERR
+           : mode == W8A8 ? Layout<W8A8>::ERR : Layout<QH8>::ERR;
+  err[1] = mode == W8A8 ? UP1_ERR_MMA : 0.f;
+  geom[0] = BR;
+  geom[1] = BC;
+  geom[2] = 0;
+  return (int)cudaSuccess;
 }

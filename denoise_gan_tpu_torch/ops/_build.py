@@ -56,11 +56,19 @@ _PROBE_DW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PROBE_MBPIPE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-# the tails' occupancy queries take (mode, canvas, &smem, &blocks)
+# the tails' occupancy queries take (mode, canvas, &smem, &blocks), their
+# parameter queries (mode, &up1 margin[2], &block geometry[3]); the up1
+# certainty test (z, a, xerr, wn, out, inv, n, q8, stream)
 _TAIL_OCCUPANCY_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_TAIL_PARAMS_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 2
+_UP1_CERTAIN_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_tail_occupancy": _TAIL_OCCUPANCY_ARGS,
                 "dgt_tail64_occupancy": _TAIL_OCCUPANCY_ARGS,
+                "dgt_tail_params": _TAIL_PARAMS_ARGS,
+                "dgt_tail64_params": _TAIL_PARAMS_ARGS,
+                "dgt_up1_certain": _UP1_CERTAIN_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
                 "dgt_probe_roll_fma": _PROBE_ROLL_ARGS,
@@ -106,57 +114,32 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def _library(sources: list[Path], flags: list[str]) -> tuple[Path, str]:
-    """The library of `sources` compiled with NVCC_FLAGS + flags, built
-    unless one of the same sources and flags exists; with the ptxas report
-    of the build ("" if none was needed)."""
+def build_library() -> Path:
+    """Compile csrc/*.cu unless a library of the same sources exists."""
+    global build_log
+    sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS + flags).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libdgt_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
-        return lib, ""
+        return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
-                         str(src)] for src, obj in zip(sources, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objs)])
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    build_log = log
     os.replace(tmp, lib)
-    return lib, log
-
-
-def build_library() -> Path:
-    """Compile csrc/*.cu unless a library of the same sources exists."""
-    global build_log
-    lib, log = _library(sorted(CSRC.glob("*.cu")), [])
-    build_log = log or build_log
     return lib
-
-
-def _load(path: Path) -> ctypes.CDLL:
-    """A built library, with the argtypes of the entry points it has."""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in ENTRY_POINTS.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
-
-
-def load_variant(source: str, defines: dict[str, str]) -> ctypes.CDLL:
-    """csrc/<source>.cu alone, built with -D<name>=<value> for each of
-    `defines` into a library of its own and loaded: a second build of a
-    kernel for a comparison on the card."""
-    flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
-    return _load(_library([CSRC / f"{source}.cu"], flags)[0])
 
 
 def sass_functions() -> dict[str, str]:
@@ -176,5 +159,9 @@ def load_library() -> ctypes.CDLL:
     """The kernels' library, built if needed, with its argtypes set."""
     global _lib
     if _lib is None:
-        _lib = _load(build_library())
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _lib = lib
     return _lib

@@ -500,17 +500,17 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _launch(entry: str, h: torch.Tensor, tw: TailWeights, nx: int, cr: int,
-            height: int, width: int, bgr: bool, canvas: bool,
-            lib: ctypes.CDLL | None = None) -> torch.Tensor:
+            height: int, width: int, bgr: bool,
+            canvas: bool) -> torch.Tensor:
     """One launch of the tail kernel `entry` (a C function of the kernels'
-    library, or of `lib`; both tails share its signature) on h's device;
-    raises unless that is a CUDA device."""
+    library; both tails share its signature) on h's device; raises unless
+    that is a CUDA device."""
     require_cuda(h.device)
     if h.data_ptr() % 16:
         raise ValueError("h must be 16-byte aligned")
     from denoise_gan_tpu_torch.ops._build import load_library
 
-    fn = getattr(lib or load_library(), entry)
+    fn = getattr(load_library(), entry)
     out = torch.empty((4 * height, 4 * width, 3),
                       dtype=torch.bfloat16 if canvas else torch.uint8,
                       device=h.device)
@@ -565,8 +565,11 @@ def fused_tail_canvas(h: torch.Tensor, tw: TailWeights, ny: int, nx: int,
 # ---------------------------------------------------------------------------
 # the kernel's index maps (csrc/tail.cu), in plain Python
 
-BLOCK = (15, 8)         # core rows x cols of a block (csrc/tail.cu BR, BC)
-CHUNK = 8               # up2's 2x rows a chunk (CH)
+# core rows x cols of a block (csrc/tail.cu BR, BC) and up2's 2x rows a
+# chunk (CH); the kernel reports its own (kernel_params), and chip_smoke.py
+# and the gpu tests hold the two equal
+BLOCK = (15, 8)
+CHUNK = 8
 
 
 def up2_rows(br: int = BLOCK[0], bc: int = BLOCK[1]) -> np.ndarray:
@@ -638,7 +641,8 @@ def out_w3_fragments(tw: TailWeights) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # up1's sum error bound, and inputs that test it
 
-# the tensor core's part of up1's sum error bound (tail_common.cuh)
+# the tensor core's part of up1's sum error bound (tail_common.cuh; the
+# kernels report theirs, kernel_params)
 UP1_ERR_MMA = 2.0 ** -16
 
 
@@ -698,6 +702,49 @@ def sass_counts(kernel: str) -> dict[tuple[str, bool], dict[str, int]]:
                 op: sum(op in line for line in lines)
                 for op in ("IMMA", "HMMA")}
     return counts
+
+
+def kernel_params(entry: str, mode: str
+                  ) -> tuple[float, float, tuple[int, int, int]]:
+    """A tail kernel's parameters in `mode` as compiled, from the C
+    function `entry` (dgt_tail_params, dgt_tail64_params): (up1's margin
+    relative to |x| |w|, 0 where the mode has no repair; the tensor core's
+    allowance within it, 0 where the margin is not built from the bound;
+    (block core rows, cols, up2's 2x rows a chunk or 0)).  Needs the
+    card's toolkit."""
+    from denoise_gan_tpu_torch.ops._build import load_library
+
+    err = (ctypes.c_float * 2)()
+    geom = (ctypes.c_int * 3)()
+    code = getattr(load_library(), entry)(MODES.index(mode), err, geom)
+    if code:
+        raise RuntimeError(f"{entry} failed: CUDA error {code}")
+    return float(err[0]), float(err[1]), tuple(geom)
+
+
+def up1_certain(z: torch.Tensor, a: torch.Tensor, xerr: torch.Tensor,
+                wn: torch.Tensor, inv: float, q8: bool) -> torch.Tensor:
+    """The kernels' up1 certainty test (csrc/tail_common.cuh::up1_certain,
+    by the C function dgt_up1_certain) on f32 tensors of one shape on a
+    CUDA device: True where u1 = prelu(z, a) keeps its rounding (q8: the
+    int8 step q(u1 * inv); else bf16) for every sum within xerr * wn of z.
+    A check of the kernels, with no plain version: raises off a CUDA
+    device."""
+    require_cuda(z.device)
+    ts = [t.to(torch.float32).contiguous() for t in (z, a, xerr, wn)]
+    if any(t.shape != z.shape or t.device != z.device for t in ts):
+        raise ValueError("z, a, xerr and wn must share a shape and device")
+    from denoise_gan_tpu_torch.ops._build import load_library
+
+    out = torch.empty(z.shape, dtype=torch.uint8, device=z.device)
+    with torch.cuda.device(z.device):
+        code = load_library().dgt_up1_certain(
+            *(t.data_ptr() for t in ts), out.data_ptr(), ctypes.c_float(inv),
+            z.numel(), int(q8),
+            torch.cuda.current_stream(z.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"dgt_up1_certain launch failed: CUDA error {code}")
+    return out.bool()
 
 
 def occupancy(entry: str, mode: str, canvas: bool) -> tuple[int, int]:

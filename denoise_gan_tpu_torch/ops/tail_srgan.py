@@ -28,7 +28,9 @@ in w8a8 and qh8), exact in any order, and bf16 x bf16 -> f32 (up1 in bf16
 and w8a8, up2 in bf16) in its own order.  The twins sum up1 in K1's order
 (ops/tail.py::_up1_sum); the kernel sums again, in that order, each u1
 value whose int8 step (w8a8) or bf16 rounding (bf16) its tensor-core sum
-leaves uncertain (within ops/tail.py::up1_err), so its u1 is the twin's.
+leaves uncertain: in w8a8 within ops/tail.py::up1_err, a bound, so its u1
+is the twin's; in bf16, whose contract is a statistical bound, within the
+measured margin 2**-18 (ops/tail.py::kernel_params reports both).
 ``dyadic_up1_`` and ``dyadic_h`` draw inputs on which every f32 partial
 sum of up1 is exact, so that any order gives the twin's u1; ops/tail.py::
 one_sign_up1_ and one_sign_h those where errors add up.

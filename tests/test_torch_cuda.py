@@ -35,6 +35,7 @@ values round apart more often than bytes: 1.03e-3 at 1x2x24, where the
 bytes differ on < 1e-3; 1.11e-3 for K1 at 1080p in chip_smoke.py).
 """
 
+import numpy as np
 import pytest
 
 from torch_process import skip_without_torch, torch_process
@@ -134,6 +135,38 @@ def test_bit_identical_on_one_sign_inputs(port, geom, family, mode, canvas):
              canvas)
     _check(r, height, width, canvas=canvas)
     assert r["max_diff"] == 0, r
+
+
+@pytest.mark.parametrize("family", ["fsrgan", "srgan"])
+def test_kernel_params_match_python(port, family):
+    """What the built kernels report of themselves (dgt_tail_params,
+    dgt_tail64_params) equals what the Python side assumes: w8a8's up1
+    margin is ops/tail.py::up1_err(9 x channels) (both parts), qh8 has
+    none, K1's bf16 none (up1 in the twin's order), K2's bf16 a measured
+    one; K1's block and chunk are ops/tail.py's BLOCK and CHUNK, which the
+    CPU index-map tests (tests/test_torch_tail.py) walk."""
+    got = port("cuda_tail_params")
+    modes, (twin, mma) = got[family]["modes"], got[family]["up1_err"]
+    assert modes["w8a8"][:2] == (float(np.float32(twin) + np.float32(mma)),
+                                 mma)
+    assert modes["qh8"][:2] == (0.0, 0.0)
+    if family == "fsrgan":
+        assert modes["bf16"][:2] == (0.0, 0.0)
+        for m in modes.values():
+            assert m[2] == (*got["block"], got["chunk"])
+    else:
+        assert modes["bf16"][0] > 0 and modes["bf16"][1] == 0.0
+
+
+@pytest.mark.parametrize("q8", [True, False], ids=["int8", "bf16"])
+def test_up1_certain_is_sound(port, q8):
+    """The kernels' up1 certainty test, as compiled: where it says certain,
+    every sum within the margin rounds to the same int8 step (or bf16
+    value) as the tensor core's; the seeded values fall on both sides."""
+    certain, uncertain, wrong = port("cuda_up1_certain_sound", q8)
+    print(f"certain {certain}, uncertain {uncertain}")
+    assert wrong == 0
+    assert certain > 1000 and uncertain > 1000
 
 
 @pytest.mark.parametrize("bgr", [False, True], ids=["rgb", "bgr"])

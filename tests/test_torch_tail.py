@@ -247,6 +247,13 @@ def test_up1_err_bounds_the_twin_order(port, k, one_sign):
     assert 0 < rel_sum <= twin and rel_norm <= rel_sum, (rel_sum, twin)
 
 
+def test_up1_certain_needs_the_card(port):
+    """ops/tail.py::up1_certain, the kernels' own certainty test, has no
+    plain version: on CPU tensors it raises."""
+    with pytest.raises((RuntimeError, ValueError)):
+        port("up1_certain_on_cpu")
+
+
 @pytest.mark.parametrize("family", ["fsrgan", "srgan"])
 def test_one_sign_inputs_keep_their_promise(port, family):
     """one_sign_up1_ and one_sign_h: every up1 weight and h value >= 0, so

@@ -508,6 +508,13 @@ def up1_sum_errors(k, one_sign, rows=256, cols=32, seed=0):
             ttail.up1_err(k))
 
 
+def up1_certain_on_cpu():
+    """ops/tail.py::up1_certain on CPU tensors: it has no plain version and
+    must raise."""
+    z = torch.zeros(4)
+    return ttail.up1_certain(z, z, z, z, 1.0, True)
+
+
 @torch.no_grad()
 def one_sign_inputs(family, ny=1, nx=1, core_rows=7, seed=0):
     """ops/tail.py's one-sign inputs for `family`: (the smallest up1 weight,
@@ -885,6 +892,54 @@ def cuda_one_sign(ny, nx, core_rows, height, width, family, mode,
         h = ttail.quantize_h(h, tw)
     return _kernel_vs_twin(family, (h, tw, ny, nx, height, width, False),
                            canvas)
+
+
+def cuda_tail_params():
+    """What each tail kernel reports of itself (ops/tail.py::kernel_params)
+    beside the Python side's values: {family: {"modes": {mode: (margin,
+    its tensor-core part, geometry)}, "up1_err": ops/tail.py::up1_err(9 x
+    channels)}, "block": ops/tail.py::BLOCK, "chunk": CHUNK}."""
+    out = {"block": tuple(ttail.BLOCK), "chunk": ttail.CHUNK}
+    for family, entry in (("fsrgan", "dgt_tail_params"),
+                          ("srgan", "dgt_tail64_params")):
+        cin = _FAMILIES[family][1]
+        out[family] = {
+            "modes": {m: ttail.kernel_params(entry, m) for m in ttail.MODES},
+            "up1_err": ttail.up1_err(9 * cin)}
+    return out
+
+
+@torch.no_grad()
+def cuda_up1_certain_sound(q8, n=1 << 18, seed=0):
+    """ops/tail.py::up1_certain (the kernels' test) on seeded (z, a, xerr,
+    wn) against the rounding it vouches for: u1 = prelu(z', a) in f32, then
+    q(u1 * inv) (q8, inv = 20) or bf16, at z' = z - d, z, z + d and 0 where
+    [z - d, z + d] holds it, d = xerr * wn in float64 (prelu is monotone
+    on each side of 0).  Returns (values certain, values uncertain, certain
+    values whose points round apart)."""
+    gen = torch.Generator().manual_seed(seed)
+    inv = 20.0
+    z = torch.randn(n, generator=gen, dtype=torch.float64) * 3
+    a = torch.rand(n, generator=gen, dtype=torch.float64) * 3 - 1.5
+    rel = 10 ** (torch.rand(n, generator=gen, dtype=torch.float64) * 4 - 6)
+    wn = torch.rand(n, generator=gen, dtype=torch.float64) * 1.5 + 0.5
+    d = (z.abs() + 1 / inv) * rel
+    xerr = d / wn
+    z32, a32 = z.float(), a.float()
+    sure = ttail.up1_certain(*(t.float().cuda() for t in (z, a, xerr, wn)),
+                             inv, q8).cpu()
+
+    def rounded(zp):
+        v = torch.where(zp >= 0, zp, a32 * zp)
+        return torch.round(v * inv) if q8 else v.bfloat16().float()
+
+    lo, hi = (z - d).float(), (z + d).float()
+    mid = torch.where((lo <= 0) & (hi >= 0), torch.zeros_like(z32), z32)
+    want = rounded(z32)
+    apart = torch.zeros(n, dtype=torch.bool)
+    for zp in (lo, hi, mid):
+        apart |= rounded(zp) != want
+    return (int(sure.sum()), int((~sure).sum()), int((sure & apart).sum()))
 
 
 def _kernel_vs_twin(family, args, canvas):
