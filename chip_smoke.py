@@ -51,18 +51,30 @@ Phases, each printed on its own line:
    twin's one-at-a-time order, on inputs of both signs and of one sign;
    the run fails unless the twin's order stays within its part and
    mma.sync within a tenth of its part, and (K = 576) unless the two
-   together stay below K2's measured bf16 margin 2**-18.  The share of up1's values that
-   the margin leaves uncertain (summed again by the repair) on 16 seeded
-   tiles (w8a8, bf16) and on the one-sign input (w8a8), as for K1.  And
-   (printed) how
+   together stay below K2's measured bf16 margin 2**-18.  The same at K3's
+   depths, K = 32 (the expand; K8's product zero-padded to 64) and K = E =
+   192 (the project), against the tensor core's allowances that K3
+   reports (dgt_mbconv_params: mma.sync within a tenth of each) and the
+   plain order's gamma_{K-1}.  The share of up1's values that the margin
+   leaves uncertain (summed again by the repair) on 16 seeded tiles (w8a8,
+   bf16) and on the one-sign input (w8a8), as for K1.  And (printed) how
    far the twin's frame moves when up1 is summed exactly (float64, rounded
    once) instead of in its order: w8a8 u8 and the bf16 canvas at 1080p,
    against the kernel-vs-twin bounds.
 3c. K3 vs its plain version: the fused inverted residual (csrc/mbconv.cu)
    at the 1080p body shape x (128, 139, 124, 32) bf16, with and without
    the expand, on the seeded FSRGAN blocks (non-zero BN statistics, so
-   relu(be) > 0 and the zero ring of the expanded tensor matters).  Target:
-   bit-identical; bound: within 1 bf16 ulp on < 1e-3 of the outputs.
+   relu(be) > 0 and the zero ring of the expanded tensor matters), and on
+   the one-sign input (ops/mbconv.py::one_sign_x, the blocks through
+   one_sign_block: every product of the expand and the project >= 0, the
+   biases cancelling the large sums), bit-identical to the plain version
+   (the kernel keeps a tensor-core value only where its bf16 rounding is
+   certain within its margin and sums the rest again in the plain order).
+   The parameters the kernel reports (dgt_mbconv_params: the margins'
+   parts, the unit and chunk geometry, the threads) must equal
+   ops/mbconv.py's; printed, the share of d and of y values that each
+   test left to the repair, counted by the kernel itself
+   (fused_mbconv_counted, a check entry that no frame path runs).
 3d. The probes vs their plain versions at the JAX probes' shapes (no frame
    path runs them).  K9 (csrc/probe_fma.cu) at x (512, 1024), seeded as
    tools/exp_vpu_peak.py: the FMA chain (256 steps) and the roll + FMA
@@ -141,7 +153,7 @@ Phases, each printed on its own line:
    plain-body engine's own distance from the engine with the f32 body (TF32
    off): the K3-body engine differs from that engine on no more bytes, and
    by more than one level on no more bytes.  Then the same engine with K3's
-   plain version as its blocks, within the phase-3c bound.
+   plain version as its blocks, byte for byte.
 4d. The whole-frame quality rule (the JAX package's tools/exp_q8_exact.py):
    per family, each engine mode against the exact whole-frame output, the
    plain bf16 generator on the whole 1080p frame edge-padded at the bottom
@@ -169,10 +181,14 @@ Phases, each printed on its own line:
    and frame borders.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
-   module on cuDNN), quantize_h and body ms/frame; K3's six launches per frame vs its plain version and the six plain
-   InvertedResidual modules on cuDNN, and the K3-body engine's frames/s
-   beside the plain-body engine's; each beside the card's name and power
-   limit.  Each kernel's bound (the
+   module on cuDNN), quantize_h and body ms/frame; K3's six launches per
+   frame vs its plain version and the six plain InvertedResidual modules on
+   cuDNN, and the K3-body engine's frames/s beside the plain-body engine's;
+   each beside the card's name and power limit.  K3's build: each
+   instantiation's HMMA count in its SASS (the run fails if one counts
+   0), registers and spills (ptxas), shared memory and blocks an SM; and
+   (printed) blocks 0 and 1 through K3's check form, the share of each
+   phase in the clock64 cycles of each warp role's first thread.  Each kernel's bound (the
    larger of its bytes over 3.35 TB/s and its operations over the
    tensor-core peak for their type) is computed from the main path's
    shapes.  The probes: K9's ms per launch over 32 chained launches (the
@@ -764,6 +780,46 @@ def up1_sum_errors(dev) -> None:
                                      "up1 margin")
 
 
+def mbconv_sum_errors(dev) -> None:
+    """Phase 3b for K3: f32 sums of K bf16 products at K3's depths, K = 32
+    (the expand) and K = mbconv.E_MAX (the project), by chained mma.sync
+    (K8's product; K = 32 zero-padded to 64) and in the plain one-at-a-time
+    order, against the exact sum, relative to |x| |w|: mma.sync must stay
+    within a tenth of the tensor core's allowance that K3 reports at that
+    depth, the plain order within gamma_{K-1} (proven)."""
+    rng = np.random.default_rng(SEED + 3)
+    err, _ = mbconv.kernel_params()
+    allowance = {mbconv.C: err[1], mbconv.E_MAX: err[2]}
+    for k, mma_err in allowance.items():
+        kp = -(-k // 64) * 64
+        plain_err = mbconv.sum_err(k)
+        for name, one_sign in (("both signs", False), ("one sign", True)):
+            x, w = relayout.seeded_operands(2048, k, 128, "canonical", dev,
+                                            rng)
+            if one_sign:
+                x, w = x.abs(), w.abs()
+            xp = torch.nn.functional.pad(x, (0, kp - k)).contiguous()
+            wq = torch.nn.functional.pad(w, (0, 0, 0, kp - k)).contiguous()
+            _, tc = relayout.matmul_form(xp, wq, "canonical", 1)
+            seq = torch.zeros_like(tc)
+            xf, wf = x.float(), w.float()
+            for i in range(k):
+                seq.addcmul_(xf[:, i:i + 1], wf[i:i + 1])
+            exact = x.double() @ w.double()
+            norm = x.double().norm(dim=1, keepdim=True) * \
+                w.double().norm(dim=0, keepdim=True)
+            e_tc, e_seq = (float(((v.double() - exact).abs() / norm).max())
+                           for v in (tc, seq))
+            print(f"  K3 sums of {k} bf16 products, {name}: mma.sync "
+                  f"{e_tc:.3e} ({mma_err / e_tc:.1f}x below K3's allowance "
+                  f"{mma_err:.3e}), the plain order {e_seq:.3e} "
+                  f"({plain_err / e_seq:.1f}x below gamma_{k - 1} "
+                  f"{plain_err:.3e}) of |x| |w|")
+            if e_seq > plain_err or 10 * e_tc >= mma_err:
+                raise AssertionError(f"f32 sum errors of {k} products "
+                                     f"({name}) reach K3's margin parts")
+
+
 def uncertain_share(fam: Family, h: torch.Tensor, tw, err: float) -> float:
     """The share of up1's values on h (SHARE_TILES tiles) whose rounding
     (int8 step in w8a8, bf16 in bf16) the margin err * |x| |w| leaves
@@ -827,41 +883,54 @@ def exactly_rounded_up1(fam: Family, inputs, grid, tails) -> None:
 
 
 def k3_vs_plain(model, dev):
-    """Phase 3c: K3 vs its plain version at the 1080p body shape, on the
-    seeded model's block 0 (no expand) and block 1 (expand).  Returns (x,
-    the six blocks' weights, max |error|, whether bit-identical)."""
+    """Phase 3c: K3's reported parameters against ops/mbconv.py's; K3 vs
+    its plain version at the 1080p body shape, on the seeded model's block
+    0 (no expand) and block 1 (expand), on the seeded input and on the
+    one-sign input, bit for bit; the shares of d and y values the kernel
+    repaired.  Returns (x, the six blocks' weights, max |error|: 0)."""
+    err, geom = mbconv.kernel_params()
+    want = (mbconv.margin_parts(),
+            (*mbconv.BLOCK, mbconv.E_CHUNK, mbconv.THREADS))
+    print(f"phase 3c fused_mbconv parameters: margin parts {err}, unit "
+          f"{geom[0]}x{geom[1]}, chunk {geom[2]}, {geom[3]} threads")
+    if (err, geom) != want:
+        raise AssertionError(f"K3 reports {(err, geom)}, ops/mbconv.py "
+                             f"holds {want}")
     ny, nx, cr = ke.plan_grid(HEIGHT, WIDTH, 27)
     body = ke.prepare_fsrgan_engine(model, HEIGHT, WIDTH)[0]
     blocks = mbconv.build_mbconv_fsrgan_body(body).blocks
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = (torch.randn((ny * nx, cr + 4, tail_ops.T, mbconv.C), generator=gen,
-                     device=dev) * 0.5).to(torch.bfloat16)
+    shape = (ny * nx, cr + 4, tail_ops.T, mbconv.C)
+    x = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(
+        torch.bfloat16)
     ring = float((blocks[1].be > 0).float().mean())
     print(f"phase 3c fused_mbconv vs plain: x {tuple(x.shape)} bf16, "
           f"be > 0 on {ring:.2f} of block 1's channels")
     if ring == 0:
         raise AssertionError("seeded be <= 0: the ring is not exercised")
-    max_err, exact = 0.0, True
-    for i in (0, 1):
-        got = mbconv.fused_mbconv(x, blocks[i])
-        torch.cuda.synchronize()
-        want = mbconv.fused_mbconv_reference(x, blocks[i])
-        torch.cuda.synchronize()
-        g, w = got.float(), want.float()
-        d = (g - w).abs()
-        # one bf16 ulp at |want|: 2**(floor(log2|want|) - 7)
-        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
-                         - 7)
-        frac = float((d > 0).float().mean())
-        print(f"  block {i} ({'expand' if blocks[i].has_expand else 'no expand'}"
-              f"): max |d| {float(d.max()):.3e}, outputs differing "
-              f"{frac:.3e}, max in ulps {float((d / ulp).max()):.1f}")
-        if bool((d > ulp).any()) or frac >= MAX_FRAC:
-            raise AssertionError(f"K3 block {i} disagrees with its plain "
-                                 "version")
-        max_err = max(max_err, float(d.max()))
-        exact = exact and frac == 0
-    return x, blocks, max_err, exact
+    one_x = mbconv.one_sign_x(shape, torch.Generator().manual_seed(SEED), dev)
+    max_err = 0.0
+    for what, xi in (("seeded", x), ("one-sign", one_x)):
+        for i in (0, 1):
+            w = blocks[i] if what == "seeded" else \
+                mbconv.one_sign_block(blocks[i], xi)
+            got = mbconv.fused_mbconv(xi, w)
+            torch.cuda.synchronize()
+            want_y = mbconv.fused_mbconv_reference(xi, w)
+            torch.cuda.synchronize()
+            same, d_max = same_bits(got.float(), want_y.float())
+            counted, n_d, n_y, _ = mbconv.fused_mbconv_counted(xi, w)
+            n = xi.numel() // mbconv.C
+            print(f"  block {i} ({'expand' if w.has_expand else 'no expand'}"
+                  f"), {what} input: "
+                  f"{'bit-identical' if same else f'max |d| {d_max:.3e}'}; "
+                  f"repaired d {n_d / (n * w.e_dim):.4%}, y "
+                  f"{n_y / (n * mbconv.C):.4%}")
+            if not (same and torch.equal(counted, got)):
+                raise AssertionError(f"K3 block {i} differs from its plain "
+                                     f"version on the {what} input")
+            max_err = max(max_err, d_max)
+    return x, blocks, max_err
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float]:
@@ -1200,7 +1269,7 @@ def k5_vs_plain(dev) -> dict[str, float]:
     return errs
 
 
-def k3_main_path(model, frames, exact: bool):
+def k3_main_path(model, frames):
     """Phase 4c: the K3-body engine as a user builds it, on MAIN_FRAMES
     alternating frames, counts zeroed just before and read just after; then
     against the plain-body engine and the plain-K3 engine on the same
@@ -1249,7 +1318,7 @@ def k3_main_path(model, frames, exact: bool):
         raise AssertionError("the K3-body engine is farther from the f32-body "
                              "engine than the plain-body engine is")
     check_bound("K3-body engine vs plain-K3-body engine", outs[1], r_out,
-                exact=exact)
+                exact=True)
     return launches, engine, p_eng
 
 
@@ -1266,6 +1335,28 @@ def k3_times(model, frames, x, blocks, k_eng, p_eng):
     mods = [getattr(body, f"InvertedResidual_{i}") for i in range(len(blocks))]
     with torch.inference_mode():
         lib_ms = card.cuda_ms(lambda: [m(xc) for m in mods], reps)
+    sass = tail_ops.sass_counts("mbconv_kernel")
+    ptxas = tail_ops.ptxas_report("mbconv_kernel")
+    for expand in (False, True):
+        smem, per_sm = mbconv.occupancy(expand)
+        for check in (False, True):
+            key = (expand, check)
+            print(f"  mbconv_kernel<{'expand' if expand else 'no expand'}"
+                  f"{', check form' if check else ''}>: SASS {sass.get(key)},"
+                  f" ptxas {ptxas.get(key)}"
+                  + ("" if check else f", shared memory {smem} bytes, "
+                     f"{per_sm} blocks an SM"))
+            if not sass.get(key, {}).get("HMMA"):
+                raise AssertionError(f"mbconv_kernel<{expand}, {check}> runs "
+                                     f"no HMMA: {sass.get(key)}")
+    for i in (0, 1):
+        _, n_d, n_y, cycles = mbconv.fused_mbconv_counted(x, blocks[i])
+        tc = sum(v for k, v in cycles.items() if k.startswith("tc"))
+        dw = sum(v for k, v in cycles.items() if k.startswith("dw"))
+        print(f"  K3 block {i} phases (clock64 cycles of each role's first "
+              "thread, share of its total): " + ", ".join(
+                  f"{k} {v / (tc if k.startswith('tc') else dw):.1%}"
+                  for k, v in cycles.items()))
     b_ms, b_by = k3_bound(x, blocks)
     print(f"  K3, {len(blocks)} launches at x {tuple(x.shape)}: kernel "
           f"{k_ms:.2f} ms/frame, plain version {p_ms:.2f}, plain "
@@ -1945,11 +2036,12 @@ def main() -> None:
         exact_sums(fam, model, dev)
         if fam.name == "srgan":
             up1_sum_errors(dev)
+            mbconv_sum_errors(dev)
         inputs, _, tails, _ = checked[fam.name]
         margin_shares(fam, model, inputs, tails, dev)
     inputs2, grid2, tails2, _ = checked["srgan"]
     exactly_rounded_up1(FAMILIES[1], inputs2, grid2, tails2)
-    x3, blocks3, err3, exact3 = k3_vs_plain(models["fsrgan"], dev)
+    x3, blocks3, err3 = k3_vs_plain(models["fsrgan"], dev)
     # ---- phase 3d: the probes' kernels vs their plain versions
     print("phase 3d probes vs plain versions (K9 at (512, 1024), K6 at "
           f"(K, {int8_chain.M}), K8, K10, K7, K4 and K5 at the JAX shapes, "
@@ -1978,8 +2070,7 @@ def main() -> None:
         else:
             check_input_options(fam, model, frames)
     # ---- phase 4c: the FSRGAN engine with the K3 body
-    launches3, k3_eng, plain_eng = k3_main_path(models["fsrgan"], frames,
-                                                exact3)
+    launches3, k3_eng, plain_eng = k3_main_path(models["fsrgan"], frames)
     # ---- phase 4d: the whole-frame quality rule
     print(f"phase 4d whole-frame quality rule ({HEIGHT}x{WIDTH}, u8 levels "
           "vs the plain bf16 generator on the whole frame):")

@@ -28,8 +28,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _TAIL_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_float] * 2
               + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 # the inverted residual takes (x, out, we, be, wd, bd, wp, bp, n, h, w,
-# e_dim, residual, stream)
+# e_dim, residual, stream), its counted form the counts before the stream;
+# its parameter query (&margin parts[7], &geometry[4]), its occupancy
+# query (expand, &smem, &blocks)
 _MBCONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_MBCONV_COUNTED_ARGS = _MBCONV_ARGS[:-1] + [ctypes.c_void_p] * 2
+_MBCONV_PARAMS_ARGS = [ctypes.c_void_p] * 2
+_MBCONV_OCCUPANCY_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 2
 # the probes (probes/): K9's FMA chain takes (x, out, n, iters, c1, c2,
 # stream) and its roll + FMA chain (x, out, rows, iters, c1, stream);
 # K6's dot chain (wt, y, k, m, iters, int8, stream); K8's product
@@ -70,6 +75,9 @@ ENTRY_POINTS = {"dgt_tail": _TAIL_ARGS, "dgt_tail64": _TAIL_ARGS,
                 "dgt_tail64_params": _TAIL_PARAMS_ARGS,
                 "dgt_up1_certain": _UP1_CERTAIN_ARGS,
                 "dgt_mbconv": _MBCONV_ARGS,
+                "dgt_mbconv_counted": _MBCONV_COUNTED_ARGS,
+                "dgt_mbconv_params": _MBCONV_PARAMS_ARGS,
+                "dgt_mbconv_occupancy": _MBCONV_OCCUPANCY_ARGS,
                 "dgt_probe_fma": _PROBE_FMA_ARGS,
                 "dgt_probe_roll_fma": _PROBE_ROLL_ARGS,
                 "dgt_probe_dot_chain": _PROBE_DOT_ARGS,

@@ -684,23 +684,35 @@ def one_sign_h(shape: tuple[int, ...], generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# the built kernels (K1 "tail_kernel", K2 "tail64_kernel")
+# the built kernels (K1 "tail_kernel", K2 "tail64_kernel"; K3's
+# "mbconv_kernel" through the same reports)
 
-def sass_counts(kernel: str) -> dict[tuple[str, bool], dict[str, int]]:
+def _instance(kernel: str, name: str) -> tuple | None:
+    """The template arguments of an instantiation of the kernel named
+    `kernel` in a mangled name, or None: a tail kernel's (mode, canvas),
+    K3's (expand, check)."""
+    m = re.search(rf"\d{kernel}I((?:L[ib]\d+E)+)E", name)
+    if not m:
+        return None
+    args = re.findall(r"L([ib])(\d+)E", m[1])
+    return tuple(MODES[int(v)] if t == "i" else v == "1" for t, v in args)
+
+
+def sass_counts(kernel: str) -> dict[tuple, dict[str, int]]:
     """IMMA and HMMA instructions (the tensor-core products) in each
-    instantiation of the tail kernel named `kernel`, by (mode, canvas), from
-    the built library's SASS (``_build.sass_functions``); {} where the
-    toolkit has no cuobjdump."""
+    instantiation of the kernel named `kernel` (a tail kernel's by (mode,
+    canvas), K3's "mbconv_kernel" by (expand, check)), from the built
+    library's SASS (``_build.sass_functions``); {} where the toolkit has
+    no cuobjdump."""
     from denoise_gan_tpu_torch.ops import _build
 
     counts = {}
     for name, block in _build.sass_functions().items():
-        m = re.search(rf"\d{kernel}ILi(\d)ELb(\d)E", name)
-        if m:
+        key = _instance(kernel, name)
+        if key:
             lines = block.splitlines()
-            counts[(MODES[int(m[1])], m[2] == "1")] = {
-                op: sum(op in line for line in lines)
-                for op in ("IMMA", "HMMA")}
+            counts[key] = {op: sum(op in line for line in lines)
+                           for op in ("IMMA", "HMMA")}
     return counts
 
 
@@ -747,36 +759,37 @@ def up1_certain(z: torch.Tensor, a: torch.Tensor, xerr: torch.Tensor,
     return out.bool()
 
 
-def occupancy(entry: str, mode: str, canvas: bool) -> tuple[int, int]:
-    """(dynamic shared memory in bytes, resident blocks an SM) of a tail
-    kernel in `mode` and epilogue, as its launch sets them, from the C
-    function `entry` (dgt_tail_occupancy, dgt_tail64_occupancy); needs the
-    card."""
+def occupancy(entry: str, *args: str | bool | int) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, resident blocks an SM) of a built
+    kernel's instantiation, as its launch sets them, from the C function
+    `entry`: a tail kernel's (dgt_tail_occupancy, dgt_tail64_occupancy) by
+    its mode and epilogue (canvas), K3's (dgt_mbconv_occupancy) by whether
+    it expands; a mode by name.  Needs the card."""
     from denoise_gan_tpu_torch.ops._build import load_library
 
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    err = getattr(load_library(), entry)(
-        MODES.index(mode), int(canvas), ctypes.byref(smem),
-        ctypes.byref(blocks))
+    ints = [MODES.index(a) if isinstance(a, str) else int(a) for a in args]
+    err = getattr(load_library(), entry)(*ints, ctypes.byref(smem),
+                                         ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return smem.value, blocks.value
 
 
-def ptxas_report(kernel: str) -> dict[tuple[str, bool], dict[str, int]]:
-    """Registers and spill bytes of each instantiation of the tail kernel
-    named `kernel`, by (mode, canvas), from the ptxas report of the build
-    made in this process (``_build.build_log``); {} where this process
-    built nothing."""
+def ptxas_report(kernel: str) -> dict[tuple, dict[str, int]]:
+    """Registers and spill bytes of each instantiation of the kernel named
+    `kernel`, keyed as by ``sass_counts``, from the ptxas report of the
+    build made in this process (``_build.build_log``); {} where this
+    process built nothing."""
     from denoise_gan_tpu_torch.ops import _build
 
     report, key = {}, None
     for line in _build.build_log.splitlines():
-        m = re.search(
-            rf"Function properties for \S*\d{kernel}ILi(\d)ELb(\d)E", line)
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            key = (MODES[int(m[1])], m[2] == "1")
-            report[key] = {}
+            key = _instance(kernel, m[1])
+            if key:
+                report[key] = {}
         elif key and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             report[key].update(stack=nums[0], spill_stores=nums[1],

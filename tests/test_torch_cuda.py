@@ -3,9 +3,16 @@ for SRGAN) against their plain PyTorch twins on the card, at small and ragged
 geometries that chip_smoke.py's 1080p shapes do not reach: core_rows not a
 multiple of the kernels' bands (15 rows in K1 and K2), and frames that end
 inside the last tile row and column.  Likewise the fused inverted residual
-(csrc/mbconv.cu, K3) against its plain version, bit for bit, at heights that
-its 8-row band and widths that its 16-column chunk do not divide, with be > 0
-so that the zero ring of the expanded tensor is exercised.
+(csrc/mbconv.cu, K3) against its plain version, bit for bit, at heights and
+widths that its 16 x 16 unit does not divide, with be > 0 so that the zero
+ring of the expanded tensor is exercised, on seeded inputs and on one-sign
+ones (every product of its two tensor-core sums >= 0, the biases cancelling
+the large sums: ops/mbconv.py::one_sign_x, one_sign_block), with more work
+units than its persistent grid and with fewer.  K3 sums the expand and the
+project on the tensor cores and sums again, in the plain order, every d
+and y value whose bf16 rounding its margins leave uncertain; what it
+reports of its margins and geometry (dgt_mbconv_params) must equal
+ops/mbconv.py's.
 
 These tests need a CUDA GPU and nvcc; without them they skip.  tests/
 conftest.py imports jax and hides CUDA devices, so on a machine with a card
@@ -193,19 +200,41 @@ def test_canvas_kernel_matches_twin(port, geom, family, mode):
         assert r["max_diff"] == 0, r
 
 
-# (n, h, w): band and chunk dividing nothing; the 1080p tile; one partial block
-MBCONV_SHAPES = [(2, 13, 37), (1, 139, 124), (3, 5, 7)]
+# (n, h, w): band and chunk dividing nothing; the 1080p tile; one partial
+# block; more work units than the persistent grid (216 of 16 x 16 on 132
+# SMs); fewer (6), ragged
+MBCONV_SHAPES = [(2, 13, 37), (1, 139, 124), (3, 5, 7), (3, 139, 124),
+                 (1, 17, 33)]
 
 
+@pytest.mark.parametrize("one_sign", [False, True], ids=["seeded", "one_sign"])
 @pytest.mark.parametrize("expand", [True, False], ids=["expand", "no_expand"])
 @pytest.mark.parametrize("shape", MBCONV_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
-def test_mbconv_kernel_matches_reference(port, shape, expand):
-    r = port("cuda_mbconv_vs_reference", *shape, expand)
+def test_mbconv_kernel_matches_reference(port, shape, expand, one_sign):
+    r = port("cuda_mbconv_vs_reference", *shape, expand, one_sign)
     assert r["shape"] == (*shape, 32)
     assert r["dtype"] == "torch.bfloat16" and r["device"] == "cuda"
     assert r["launches"] == 1
     assert r["max_diff"] == 0, r
+
+
+def test_mbconv_grid_cases(port):
+    """MBCONV_SHAPES holds a shape with more work units than K3's
+    persistent grid and one with fewer, on this card."""
+    more, grid = port("cuda_mbconv_units", 3, 139, 124)
+    fewer, _ = port("cuda_mbconv_units", 1, 17, 33)
+    assert fewer < grid < more, (fewer, grid, more)
+
+
+def test_mbconv_params_match_python(port):
+    """What the built K3 kernel reports of itself (dgt_mbconv_params)
+    equals what ops/mbconv.py holds: the margins' parts (the plain order's
+    and the tensor core's at the expand and the project, the roundings
+    between a sum and its test) and the unit, chunk and threads."""
+    got, want = port("cuda_mbconv_params")
+    print(got)
+    assert got == want
 
 
 @pytest.mark.parametrize("bad", ["dtype", "layout"])

@@ -670,6 +670,144 @@ def mbconv_wrapper_bad_input(x, w, bad):
                          _mbconv_weights(w, "bf16"))
 
 
+def _seq_sum(a: torch.Tensor, w: torch.Tensor, order: str, err: float = 0.0
+             ) -> torch.Tensor:
+    """f32 sums over the last axis of a against w's rows, in `order`:
+    "plain" (one product at a time, index 0 up, as the plain version),
+    "reversed" (index K-1 down), "f64" (exact in float64, rounded once),
+    "allowance" (the exact sum moved by 0.9 err |a| |w|, the sign drawn
+    per sum from a fixed seed: a tensor core at the edge of the allowance
+    err)."""
+    if order in ("f64", "allowance"):
+        exact = a.double() @ w.double()
+        if order == "allowance":
+            sign = torch.randint(0, 2, exact.shape, generator=torch.Generator(
+                ).manual_seed(7)).double() * 2 - 1
+            exact = exact + sign * 0.9 * err * a.double().norm(
+                dim=-1, keepdim=True) * w.double().norm(dim=0)
+        return exact.float()
+    acc = a.new_zeros(a.shape[:-1] + (w.shape[1],))
+    idx = range(a.shape[-1])
+    for i in (reversed(idx) if order == "reversed" else idx):
+        acc.addcmul_(a[..., i:i + 1], w[i])
+    return acc
+
+
+def _margin_rows(x, w, order):
+    """The K3 kernel's route in plain PyTorch, with its tensor-core sums
+    taken in `order` instead: (counts, the routed output, the plain
+    version's output)."""
+    xf = x.float()
+    hh, ww = x.shape[1:3]
+    out = {}
+    if w.has_expand:
+        we = w.we.float()
+        s_plain = _seq_sum(xf, we, "plain")
+        s_alt = _seq_sum(xf, we, order, tmbconv.ERR_MMA_EXPAND)
+        exact = xf.double() @ we.double()
+        norm = xf.double().norm(dim=-1, keepdim=True) * we.double().norm(dim=0)
+        out["premise_e"] = int(((s_alt.double() - exact).abs()
+                                > tmbconv.ERR_MMA_EXPAND * norm).sum())
+        e_plain = torch.relu(s_plain + w.be.float())
+        e_alt = torch.relu(s_alt + w.be.float())
+    else:
+        e_plain = e_alt = xf
+
+    def depthwise(e):
+        ep = torch.nn.functional.pad(e, (0, 0, 1, 1, 1, 1))
+        acc = torch.zeros_like(e)
+        for dr in range(3):
+            for dc in range(3):
+                tap = ep[:, dr:dr + hh, dc:dc + ww]
+                acc = acc + tap * w.wd.float()[dr, dc]
+        return acc + w.bd.float()
+
+    v_plain, v_alt = depthwise(e_plain), depthwise(e_alt)
+
+    def to_d(v):
+        return torch.relu(v).to(x.dtype).float()
+
+    d_plain, d_alt = to_d(v_plain), to_d(v_alt)
+    sure = tmbconv.certain(v_alt, tmbconv.d_margin(x, w, e_alt), relu=True) \
+        if w.has_expand else torch.ones_like(v_alt, dtype=torch.bool)
+    out.update(d_values=d_alt.numel(), d_uncertain=int((~sure).sum()),
+               d_apart=int((d_alt != d_plain).sum()),
+               d_wrong=int((sure & (d_alt != d_plain)).sum()))
+    d = torch.where(sure, d_alt, d_plain)      # the repair: the plain order
+
+    wp = w.wp.float()
+    p_plain = _seq_sum(d, wp, "plain")
+    p_alt = _seq_sum(d, wp, order, tmbconv.ERR_MMA_PROJECT)
+    exact = d.double() @ wp.double()
+    norm = d.double().norm(dim=-1, keepdim=True) * wp.double().norm(dim=0)
+    out["premise_p"] = int(((p_alt.double() - exact).abs()
+                            > tmbconv.ERR_MMA_PROJECT * norm).sum())
+
+    def to_y(p):
+        y = p + w.bp.float()
+        return y + xf if w.residual else y
+
+    y_plain, y_alt = to_y(p_plain), to_y(p_alt)
+    sure = tmbconv.certain(y_alt, tmbconv.y_margin(d, x, w), relu=False)
+    yb_plain, yb_alt = y_plain.to(x.dtype), y_alt.to(x.dtype)
+    out.update(y_values=y_alt.numel(), y_uncertain=int((~sure).sum()),
+               y_apart=int((yb_alt != yb_plain).sum()),
+               y_wrong=int((sure & (yb_alt != yb_plain)).sum()))
+    return out, torch.where(sure, yb_alt, yb_plain), yb_plain
+
+
+def mbconv_margin_case(seed, expand, one_sign, order):
+    """The K3 kernel's margin tests (ops/mbconv.py: d_margin, y_margin,
+    certain) on a seeded block and x (2, 16, 20, 32) bf16, or their
+    one-sign forms (one_sign_x, one_sign_block), with the expand and the
+    project summed in `order` ("f64", "reversed", "allowance": _seq_sum)
+    where the kernel uses the tensor cores: a dict of counts (values,
+    uncertain, apart from the plain version, apart where the test says
+    certain; sums beyond the tensor core's allowance) and whether the
+    routed output (certain values from the other order, the rest in the
+    plain order) equals fused_mbconv_reference bit for bit."""
+    gen = torch.Generator().manual_seed(seed)
+    w = _seeded_block(gen, expand, "cpu")
+    shape = (2, 16, 20, 32)
+    if one_sign:
+        x = tmbconv.one_sign_x(shape, gen)
+        w = tmbconv.one_sign_block(w, x)
+    else:
+        x = (torch.randn(shape, generator=gen) * 0.5).bfloat16()
+    with torch.no_grad():
+        out, routed, plain = _margin_rows(x, w, order)
+        want = tmbconv.fused_mbconv_reference(x, w)
+    out["plain_is_reference"] = bool(torch.equal(plain, want))
+    out["routed_is_reference"] = bool(torch.equal(routed, want))
+    return out
+
+
+def mbconv_margin_parts():
+    """ops/mbconv.py::margin_parts()."""
+    return tmbconv.margin_parts()
+
+
+def mbconv_one_sign(seed):
+    """one_sign_x and one_sign_block on a seeded expanding block: whether
+    every expand, depthwise and project weight and every x is >= 0, the
+    means over x of the expand's and the project's sums plus their biases
+    (near 0: the bias cancels them) against the sums' mean size, and the
+    share of d values that ReLU keeps."""
+    gen = torch.Generator().manual_seed(seed)
+    x = tmbconv.one_sign_x((2, 16, 20, 32), gen)
+    w = tmbconv.one_sign_block(_seeded_block(gen, True, "cpu"), x)
+    with torch.no_grad():
+        s = x.float() @ w.we.float()
+        y = tmbconv.fused_mbconv_reference(x, w).float() - x.float()
+        p = y - w.bp.float()
+    return dict(
+        nonneg=bool((x >= 0).all() and (w.we >= 0).all()
+                    and (w.wd >= 0).all() and (w.wp >= 0).all()),
+        s_mean=float((s + w.be.float()).mean()), s_size=float(s.mean()),
+        p_mean=float((p + w.bp.float()).mean()), p_size=float(p.mean()),
+        dtype=str(w.be.dtype))
+
+
 # ---------------------------------------------------------------------------
 # infer/kernel_engine.py
 
@@ -980,14 +1118,20 @@ def _seeded_block(gen, expand, device):
                            device=device)
 
 
-def cuda_mbconv_vs_reference(n, h, w, expand):
-    """The K3 kernel and its plain version on one seeded bf16 x on the card:
-    a dict of the output's shape, dtype and device, the kernel's launch-count
-    increment, the max |difference| and the share of outputs that differ."""
+def cuda_mbconv_vs_reference(n, h, w, expand, one_sign=False):
+    """The K3 kernel and its plain version on one seeded bf16 x on the card
+    (or the one-sign input: ops/mbconv.py::one_sign_x, the block through
+    one_sign_block): a dict of the output's shape, dtype and device, the
+    kernel's launch-count increment, the max |difference| and the share of
+    outputs that differ."""
     gen = torch.Generator().manual_seed(n * 10000 + h * 100 + w)
-    x = (torch.randn((n, h, w, 32), generator=gen) * 0.5).to(
-        "cuda", torch.bfloat16)
-    mw = _seeded_block(gen, expand, "cuda")
+    if one_sign:
+        x = tmbconv.one_sign_x((n, h, w, 32), gen, "cuda")
+        mw = tmbconv.one_sign_block(_seeded_block(gen, expand, "cuda"), x)
+    else:
+        x = (torch.randn((n, h, w, 32), generator=gen) * 0.5).to(
+            "cuda", torch.bfloat16)
+        mw = _seeded_block(gen, expand, "cuda")
     before = tmbconv.launch_counts["fused_mbconv"]
     got = tmbconv.fused_mbconv(x, mw)
     torch.cuda.synchronize()
@@ -997,6 +1141,22 @@ def cuda_mbconv_vs_reference(n, h, w, expand):
     return dict(shape=tuple(got.shape), dtype=str(got.dtype),
                 device=got.device.type, launches=launches,
                 max_diff=float(d.max()), frac_diff=float((d > 0).float().mean()))
+
+
+def cuda_mbconv_params():
+    """(What the built K3 kernel reports of itself, what ops/mbconv.py
+    holds): its margin parts and its geometry."""
+    return tmbconv.kernel_params(), (
+        tmbconv.margin_parts(),
+        (*tmbconv.BLOCK, tmbconv.E_CHUNK, tmbconv.THREADS))
+
+
+def cuda_mbconv_units(n, h, w):
+    """(K3's work units for x (n, h, w, 32), its persistent grid on this
+    card: SMs times resident blocks an SM)."""
+    bh, bw = tmbconv.BLOCK
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n * -(-h // bh) * -(-w // bw), sms * tmbconv.occupancy(True)[1]
 
 
 def cuda_mbconv_bad_input(bad):
