@@ -179,6 +179,31 @@ Phases, each printed on its own line:
    within 1 level on the interior (max <= 2, > 1 on < 1e-3: only summation
    order differs there), so every larger difference sits at the tile seams
    and frame borders.
+4e. The generic frame engine (infer/engine.py::build_frame_engine, plain
+   PyTorch, no hand kernel: each engine's run must launch none), at full
+   width on seeded weights (rng SEED + 1; BN running statistics away from
+   0 and 1), the 1080p frames of phase 4: the autoencoder's crop engine at
+   tile 128 / overlap 8 (9 x 16 tiles; bf16 and f32, and in bf16 with bgr
+   and with frames_per_call 2) and pix2pix's at 256 / 8 (5 x 8 tiles; bf16
+   and f32), each the plain generator per tile (the video CLI's 1x
+   engine); FSRGAN 4x through infer/fast.py::build_fast_coarse (bf16),
+   feathered and cropped at 144 / 4 and whole-frame (tile 0); SRGAN 2x
+   through it, feathered at 144 / 4.  Asserted: (a) each family's engine
+   on the card against the same engine on the CPU, f32 (TF32 off), at
+   270x480 (pix2pix 256x512): max |du8| <= 1 on < 1e-3 of the bytes;
+   (b) the autoencoder and pix2pix crop engines against a per-tile loop
+   written here (each tile through the generator alone, its core copied
+   into place), at 1080p: f32 the same bound; bf16 within PERF.md section
+   2's bf16 envelope, max 1 on < 5% (cuDNN sums one tile in another order
+   than the batch, and bf16 carries the roundings through every layer:
+   the autoencoder measured 2.7e-3 on the H100); the bgr output
+   equal to the RGB output flipped, the frames_per_call=2 output to the
+   single frames within the bound; (c) every output (H*s, W*s, 3) uint8 on
+   the card.  Printed: (d) the FSRGAN whole-frame engine against its
+   feathered and cropped engines (share of bytes > 1 level apart);
+   frames/s and torch.cuda.max_memory_allocated per engine and dtype, the
+   FSRGAN kernel engines' frames/s beside them, and the card's name and
+   power limit.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -252,7 +277,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from denoise_gan_tpu_torch.infer import engine as generic
 from denoise_gan_tpu_torch.infer import kernel_engine as ke
+from denoise_gan_tpu_torch.infer.fast import build_fast_coarse
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
@@ -265,7 +292,7 @@ from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
                                           mbpipe, overlap, relayout,
                                           u8_store)
 from denoise_gan_tpu_torch.utils import card
-from denoise_gan_tpu_torch.utils.device import require_cuda
+from denoise_gan_tpu_torch.utils.device import no_tf32, require_cuda
 
 HEIGHT, WIDTH = 1080, 1920
 SEED = 0
@@ -309,6 +336,17 @@ K7_STEPS = 8
 K4_REPS = (1, 37)
 # phase 3d: K5's last step checked at these step counts
 K5_REPS = (1, 2, 37)
+# phase 4e: the generic engines' (tile, overlap) (infer/video.py's
+# TILE_DEFAULTS), the cut geometries of the CPU check (a), and the frames
+# timed per engine
+TILES_1X = {"autoencoder": (128, 8), "pix2pix": (256, 8)}
+TILE_4X = (144, 4)
+CUT = {"autoencoder": (270, 480), "pix2pix": (256, 512),
+       "fsrgan": (270, 480), "srgan": (270, 480)}
+GENERIC_FRAMES = 6
+# phase 4e check (b) in bf16: PERF.md section 2's bf16 envelope of the port
+# against its references (SRGAN, the K3 body)
+BF16_ENVELOPE = 5e-2
 
 
 @dataclass(frozen=True)
@@ -437,7 +475,11 @@ def flax_tree(model: torch.nn.Module, draw: Callable):
         *path, leaf = name.split(".")
         shape = tuple(t.shape)
         if leaf == "weight":
-            o, i, kh, kw = shape
+            # a ConvTranspose weight is (in, out, kh, kw) (io/params.py)
+            if path[-1].startswith("ConvTranspose"):
+                i, o, kh, kw = shape
+            else:
+                o, i, kh, kw = shape
             leaf, shape = "kernel", (kh, kw, i, o)
         a = draw(path, leaf, shape)
         tree = stats if leaf in ("mean", "var") else params
@@ -2005,6 +2047,208 @@ def k5_times(dev, errs: dict[str, float]) -> list[dict]:
     return entries
 
 
+def plain_tile_loop(model, frame01: torch.Tensor, tile: int,
+                    overlap: int) -> torch.Tensor:
+    """Check (b)'s reference for a 1x crop engine, written apart from
+    infer/engine.py: the frame normalised and edge-padded (overlap/2 on
+    top and left), each tile through the generator alone, its central
+    (tile - overlap) square copied into place, then clip((y+1)/2) and
+    trunc(x*255 + 0.5) as uint8 (x=1 gives 255), cropped."""
+    height, width = frame01.shape[:2]
+    dev = frame01.device
+    stride, m0 = tile - overlap, overlap // 2
+    ny, nx = -(-height // stride), -(-width // stride)
+    rows = (torch.arange((ny - 1) * stride + tile, device=dev)
+            - m0).clamp(0, height - 1)
+    cols = (torch.arange((nx - 1) * stride + tile, device=dev)
+            - m0).clamp(0, width - 1)
+    x = (frame01 * 2.0 - 1.0)[rows][:, cols]
+    out = torch.empty(ny * stride, nx * stride, 3, device=dev)
+    with torch.inference_mode(), no_tf32():
+        for i in range(ny):
+            for j in range(nx):
+                y = model(x[None, i * stride:i * stride + tile,
+                            j * stride:j * stride + tile])[0]
+                out[i * stride:(i + 1) * stride,
+                    j * stride:(j + 1) * stride] = \
+                    y[m0:m0 + stride, m0:m0 + stride]
+    out01 = ((out + 1.0) / 2.0).clamp(0.0, 1.0)
+    return (out01 * 255.0 + 0.5).clamp(max=255.0).to(
+        torch.uint8)[:height, :width]
+
+
+def check_bf16_envelope(what: str, a: torch.Tensor, b: torch.Tensor
+                        ) -> None:
+    """Check (b) in bf16: max |du8| <= 1 on < BF16_ENVELOPE of the bytes.
+    cuDNN picks other conv algorithms for one tile than for the batch, and
+    bf16 rounds every activation, so the two sums round apart and drift
+    through the layers (f32 holds check_bound's 1e-3)."""
+    dmax, frac = u8_diff(a, b)
+    print(f"  {what}: max |du8| {dmax}, bytes differing {frac:.3e} (bf16 "
+          f"envelope: max 1 on < {BF16_ENVELOPE})")
+    if dmax > 1 or frac >= BF16_ENVELOPE:
+        raise AssertionError(f"{what}: outside the bf16 envelope (max "
+                             f"{dmax}, fraction {frac:.3e})")
+
+
+def check_output(what: str, out: torch.Tensor, shape) -> None:
+    """Check (c): an engine output is the (H*s, W*s, 3) uint8 frame on the
+    card; prints its per-channel std."""
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.uint8 or \
+            out.device.type != "cuda":
+        raise AssertionError(f"{what}: bad output {tuple(out.shape)} "
+                             f"{out.dtype} {out.device}")
+    std = out.float().reshape(-1, 3).std(dim=0)
+    print(f"    {what} output {tuple(out.shape)} uint8, per-channel std "
+          f"{[round(float(v), 2) for v in std]}")
+
+
+def generic_engine(fam: str, model, height: int, width: int, dt, **kw):
+    """The engine the JAX video CLI builds for `fam`: the plain generator
+    (compute dtype `dt`) per tile at scale 1, or build_fast_coarse's
+    forward (`dt`) at its scale; u8 output, on the model's device."""
+    dev = next(model.parameters()).device
+    if fam in TILES_1X:
+        gen = build_generator(fam, dtype=dt, device=dev)
+        gen.load_state_dict(model.state_dict())
+        tile, overlap = TILES_1X[fam]
+        kw = dict(dict(tile=tile, overlap=overlap, stitch="crop"), **kw)
+        return generic.build_frame_engine(gen, height, width, 1,
+                                          out_uint8=True, device=dev, **kw)
+    fwd, scale = build_fast_coarse(model, dtype=dt)
+    kw = dict(dict(tile=TILE_4X[0], overlap=TILE_4X[1]), **kw)
+    return generic.build_frame_engine(fwd, height, width, scale,
+                                      out_uint8=True, device=dev, **kw)
+
+
+def drive_generic(what: str, engine, frames, shape) -> list[torch.Tensor]:
+    """One generic engine's path: every launch count zeroed just before,
+    read just after; plain PyTorch must launch no hand kernel.  Check (c)
+    on its outputs."""
+    reset_counts()
+    outs = [engine(frames[i % 2]) for i in range(2)]
+    torch.cuda.synchronize()
+    if fired():
+        raise AssertionError(f"{what} launched hand kernels: {fired()}")
+    check_output(what, outs[1], shape)
+    return outs
+
+
+def fps_and_peak(engine, frames) -> tuple[float, float]:
+    """(frames/s over GENERIC_FRAMES alternating frames, host clock ending
+    in a synchronize; torch.cuda.max_memory_allocated in GB over one more
+    frame)."""
+    fps = engine_fps(engine, frames, GENERIC_FRAMES)
+    torch.cuda.reset_peak_memory_stats()
+    engine(frames[0])
+    torch.cuda.synchronize()
+    return fps, torch.cuda.max_memory_allocated() / 1e9
+
+
+def generic_engines(models: dict, frames, smi: str) -> None:
+    """Phase 4e (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = frames[0].device
+    rng = np.random.default_rng(SEED + 1)
+    models = dict(models)
+    for fam in ("autoencoder", "pix2pix"):
+        model = build_generator(fam, device=dev)
+        models[fam] = from_jax_params(model, *seeded_flax_tree(model, rng))
+    model = build_generator("srgan", device=dev, scale=2)
+    models["srgan2x"] = from_jax_params(model, *seeded_flax_tree(
+        model, rng, SRGAN_BODY_GAIN, 1.0))
+    print(f"phase 4e generic frame engine [{smi}]:")
+
+    # (a) the same engine on the card and on the CPU, f32, TF32 off
+    print("  (a) card vs CPU, f32, TF32 off:")
+    for fam, key in (("autoencoder", "autoencoder"), ("pix2pix", "pix2pix"),
+                     ("fsrgan", "fsrgan"), ("srgan", "srgan2x")):
+        height, width = CUT[fam]
+        frame = seeded_frame(rng, height, width, "cpu")
+        model = models[key]
+        cpu_model = copy.deepcopy(model).cpu()
+        on_card = generic_engine(fam, model, height, width, torch.float32)(
+            frame.to(dev))
+        on_cpu = generic_engine(fam, cpu_model, height, width,
+                                torch.float32)(frame)
+        check_bound(f"{key} {height}x{width} card vs CPU", on_card.cpu(),
+                    on_cpu)
+
+    # (b), (c) the 1x crop engines at 1080p, against a per-tile loop
+    for fam in ("autoencoder", "pix2pix"):
+        tile, overlap = TILES_1X[fam]
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            what = f"{fam} crop {tile}/{overlap} {name}"
+            engine = generic_engine(fam, models[fam], HEIGHT, WIDTH, dt)
+            outs = drive_generic(what, engine, frames, (HEIGHT, WIDTH, 3))
+            gen = build_generator(fam, dtype=dt, device=dev)
+            gen.load_state_dict(models[fam].state_dict())
+            loop = plain_tile_loop(gen, frames[1], tile, overlap)
+            if dt == torch.float32:
+                check_bound(f"{what} vs per-tile loop", outs[1], loop)
+            else:
+                check_bf16_envelope(f"{what} vs per-tile loop", outs[1],
+                                    loop)
+            fps, peak = fps_and_peak(engine, frames)
+            print(f"    {what}: {fps:.2f} frames/s, peak {peak:.2f} GB")
+            if fam != "autoencoder" or name != "bf16":
+                continue
+            bgr = generic_engine(fam, models[fam], HEIGHT, WIDTH, dt,
+                                 bgr=True)
+            out = drive_generic(f"{what} bgr", bgr, frames,
+                                (HEIGHT, WIDTH, 3))[1]
+            if not torch.equal(out, outs[1].flip(-1)):
+                raise AssertionError("bgr output is not the RGB output "
+                                     "flipped")
+            fps, peak = fps_and_peak(bgr, frames)
+            print(f"    {what} bgr: {fps:.2f} frames/s, peak {peak:.2f} GB")
+            fpc = generic_engine(fam, models[fam], HEIGHT, WIDTH, dt,
+                                 frames_per_call=2)
+            pair = torch.stack(frames)
+            out = drive_generic(f"{what} frames_per_call=2", fpc,
+                                [pair, pair], (2, HEIGHT, WIDTH, 3))[1]
+            for k in range(2):
+                check_bound(f"{what} frames_per_call=2, frame {k}", out[k],
+                            outs[k])
+            fps, peak = fps_and_peak(fpc, [pair, pair])
+            print(f"    {what} frames_per_call=2: {2 * fps:.2f} frames/s, "
+                  f"peak {peak:.2f} GB")
+
+    # the 4x engines through build_fast_coarse, bf16
+    fine = (4 * HEIGHT, 4 * WIDTH, 3)
+    outs4 = {}
+    for label, kw in (("feather", {}), ("crop", dict(stitch="crop")),
+                      ("whole", dict(tile=0))):
+        what = f"fsrgan fast-coarse {label}" + (
+            "" if label == "whole" else f" {TILE_4X[0]}/{TILE_4X[1]}")
+        engine = generic_engine("fsrgan", models["fsrgan"], HEIGHT, WIDTH,
+                                torch.bfloat16, **kw)
+        outs4[label] = drive_generic(what, engine, frames, fine)[1]
+        fps, peak = fps_and_peak(engine, frames)
+        print(f"    {what} bf16: {fps:.2f} frames/s, peak {peak:.2f} GB")
+    what = f"srgan 2x fast-coarse feather {TILE_4X[0]}/{TILE_4X[1]}"
+    engine = generic_engine("srgan", models["srgan2x"], HEIGHT, WIDTH,
+                            torch.bfloat16)
+    drive_generic(what, engine, frames, (2 * HEIGHT, 2 * WIDTH, 3))
+    fps, peak = fps_and_peak(engine, frames)
+    print(f"    {what} bf16: {fps:.2f} frames/s, peak {peak:.2f} GB")
+
+    # (d) FSRGAN whole frame against the tiled engines (printed)
+    for label in ("feather", "crop"):
+        d = (outs4["whole"].int() - outs4[label].int()).abs()
+        print(f"  (d) fsrgan whole-frame vs {label}: max |du8| "
+              f"{int(d.max())}, > 1 on {float((d > 1).float().mean()):.4%}"
+              f", > 0 on {float((d > 0).float().mean()):.4%}")
+    fam = FAMILIES[0]
+    for mode, kw in (("w8a8", dict(q8_calib_frame=frames[0])),
+                     ("bf16", {})):
+        fps = engine_fps(fam.build(models["fsrgan"], HEIGHT, WIDTH, **kw),
+                         frames, GENERIC_FRAMES)
+        print(f"    beside it: fsrgan kernel engine {mode} (K1 tail) "
+              f"{fps:.2f} frames/s")
+    print(f"  phase 4e took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -2081,6 +2325,9 @@ def main() -> None:
         model = from_jax_params(model, *jax_init_tree(
             model, np.random.default_rng(SEED), fam.name))
         quality_rule(fam, model, HEIGHT, WIDTH, dev, "JAX-init", holds=True)
+
+    # ---- phase 4e: the generic frame engine and the 1x families
+    generic_engines(models, frames, smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

@@ -5,7 +5,11 @@ reference: ``models/fsrgan.py`` here is the counterpart of
 ``denoise_gan_tpu/models/fsrgan.py`` and so on.  The package imports torch
 and never jax or flax.
 
-Slice ported so far: FSRGAN 4x inference through the kernel engine
-(``infer/kernel_engine.py``), whose fused tail is a hand-written CUDA kernel
-(``csrc/tail.cu``) with a plain PyTorch twin (``ops/tail.py``).
+Ported so far: FSRGAN and SRGAN 4x inference through the kernel engines
+(``infer/kernel_engine.py``), whose fused tails and inverted residuals are
+hand-written CUDA kernels (``csrc/``) with plain PyTorch twins (``ops/``);
+the four generators (``models/``); the generic frame engine, overlap
+tiling and the coarse-tail rewrite (``infer/engine.py``, ``infer/tile.py``,
+``infer/fast.py``) in plain PyTorch; and the TPU probes' counterparts
+(``probes/``).
 """

@@ -25,18 +25,30 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield path, value
 
 
+def torch_kernel(path: tuple[str, ...], kernel: np.ndarray) -> np.ndarray:
+    """The port's ``weight`` for the Flax ``kernel`` at `path`.  A conv's
+    (kh, kw, in, out) kernel becomes OIHW (out, in, kh, kw), so a depthwise
+    (3, 3, 1, C) kernel becomes (C, 1, 3, 3).  A ConvTranspose scope's
+    kernel (Flax's transpose_kernel=False) becomes conv_transpose2d's (in,
+    out, kh, kw), flipped in both spatial axes (models/layers.py::
+    ConvTranspose says why)."""
+    if len(path) > 1 and path[-2].startswith("ConvTranspose"):
+        return np.ascontiguousarray(kernel[::-1, ::-1].transpose(2, 3, 0, 1))
+    return kernel.transpose(3, 2, 0, 1)
+
+
 def jax_state_dict(params: Mapping,
                    batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
-    """Flax trees -> a torch state dict, all f32.  Conv kernels go HWIO ->
-    OIHW, so a depthwise (3, 3, 1, C) kernel becomes (C, 1, 3, 3); BN
-    scale/bias/mean/var and PReLU alphas keep their shape."""
+    """Flax trees -> a torch state dict, all f32.  Kernels become weights
+    by ``torch_kernel``; BN scale/bias/mean/var and PReLU alphas keep their
+    shape."""
     out = {}
     for tree in (params, batch_stats or {}):
         for path, leaf in _leaves(tree):
             arr = np.asarray(leaf, np.float32)
             name = path[-1]
             if name == "kernel":
-                arr, name = arr.transpose(3, 2, 0, 1), "weight"
+                arr, name = torch_kernel(path, arr), "weight"
             out[".".join(path[:-1] + (name,))] = torch.tensor(arr)
     return out
 

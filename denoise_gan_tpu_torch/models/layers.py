@@ -1,5 +1,5 @@
-"""PyTorch counterparts of the Flax building blocks the FSRGAN and SRGAN
-generators use (denoise_gan_tpu/models/layers.py:33-134).
+"""PyTorch counterparts of the Flax building blocks the four generators use
+(denoise_gan_tpu/models/layers.py:25-147, and flax.linen's ConvTranspose).
 
 Layers take NCHW tensors, PyTorch's convolution layout; the generator keeps
 them in channels_last memory, so the storage is NHWC as on the JAX side.
@@ -31,6 +31,27 @@ def glorot_uniform(w: torch.Tensor, generator=None) -> None:
     w.uniform_(-limit, limit, generator=generator)
 
 
+def _fan_in_truncated_normal(w: torch.Tensor, scale: float,
+                             generator=None) -> None:
+    """flax's variance_scaling(scale, "fan_in", "truncated_normal") for an
+    OIHW kernel: N(0, s) cut at +-2 s, s = sqrt(scale / fan_in) / .8796
+    (the standard deviation of a unit normal cut at +-2)."""
+    o, i, kh, kw = w.shape
+    std = math.sqrt(scale / (i * kh * kw)) / .87962566103423978
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                generator=generator)
+
+
+def he_normal(w: torch.Tensor, generator=None) -> None:
+    """flax's he_normal (the autoencoder's ReLU convs)."""
+    _fan_in_truncated_normal(w, 2.0, generator)
+
+
+def lecun_normal(w: torch.Tensor, generator=None) -> None:
+    """flax's lecun_normal (the autoencoder's tanh conv)."""
+    _fan_in_truncated_normal(w, 1.0, generator)
+
+
 def normal02(w: torch.Tensor, generator=None) -> None:
     """N(0, 0.02), the SRGAN kernels' init (layers.py:33-35)."""
     w.normal_(0.0, 0.02, generator=generator)
@@ -44,6 +65,37 @@ def gamma_normal02(w: torch.Tensor, generator=None) -> None:
 def _channel(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Per-channel vector -> (1, C, 1, 1) in `dtype`."""
     return v.to(dtype).view(1, -1, 1, 1)
+
+
+def same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
+    """(before, after) padding of lax's 'SAME' for size n, window k:
+    total = max((ceil(n / s) - 1) * s + k - n, 0), before = total // 2.
+    Odd totals (a 3x3 or 2x2 window at stride 2 on even sizes, a 4x4 one
+    on odd sizes) pad one more after than before."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
+    """where(x >= 0, x, alpha * x) with alpha rounded to x's dtype, as
+    JAX's weak float scalar is (layers.py:57-58): in bf16 the slope is
+    bf16(alpha), and the product of two bf16 values rounds once."""
+    a = torch.tensor(alpha, dtype=x.dtype).item()
+    return torch.where(x >= 0, x, a * x)
+
+
+def max_pool_same(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """Keras MaxPool2D(k, k, 'same') on NCHW (layers.py:137-141): lax's
+    SAME pads with -inf, one more after than before."""
+    (pt, pb), (pl, pr) = (same_pads(n, k, k) for n in x.shape[-2:])
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(x, k, k)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Keras UpSampling2D(nearest) on NCHW (layers.py:144-147)."""
+    return x.repeat_interleave(factor, -2).repeat_interleave(factor, -1)
 
 
 class PReLU(nn.Module):
@@ -85,21 +137,22 @@ class BatchNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """Stride-1 'SAME' convolution with Keras defaults: glorot-uniform
-    kernel, zero bias (layers.py:106-117).  ``groups=channels`` is the
-    depthwise form; ``use_bias=False`` has no ``bias`` parameter at all, as
-    Flax's."""
+    """'SAME' convolution with Keras defaults: glorot-uniform kernel, zero
+    bias (layers.py:106-117).  Any square kernel and stride; the padding is
+    lax's SAME rule (``same_pads``), which pads one more after than before
+    where the total is odd.  ``groups=channels`` is the depthwise form;
+    ``use_bias=False`` has no ``bias`` parameter at all, as Flax's."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  groups: int = 1, use_bias: bool = True,
                  kernel_init: Init = glorot_uniform,
                  dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 stride: int = 1):
         super().__init__()
-        if kernel_size % 2 != 1:
-            raise ValueError("SAME padding here needs an odd kernel size")
         self.dtype = dtype
         self.groups = groups
+        self.stride = stride
         w = torch.empty(cout, cin // groups, kernel_size, kernel_size)
         kernel_init(w, generator)
         self.weight = nn.Parameter(w)
@@ -110,9 +163,55 @@ class Conv(nn.Module):
         # output is rounded before the add.  Fusing the bias into the conv
         # rounds once and changes ~60% of bf16 body outputs by an ulp.
         dt = self.dtype or x.dtype
-        k = self.weight.shape[-1]
-        y = F.conv2d(x.to(dt), self.weight.to(dt), padding=k // 2,
+        k, s = self.weight.shape[-1], self.stride
+        (pt, pb), (pl, pr) = (same_pads(n, k, s) for n in x.shape[-2:])
+        x = x.to(dt)
+        if (pt, pl) != (pb, pr):
+            x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
+        y = F.conv2d(x, self.weight.to(dt), stride=s, padding=(pt, pl),
                      groups=self.groups)
+        return y if self.bias is None else y + _channel(self.bias, dt)
+
+
+class ConvTranspose(nn.Module):
+    """flax.linen.ConvTranspose(features, (k, k), strides=(s, s),
+    padding='SAME') with transpose_kernel=False, on NCHW.  lax pads the
+    s-dilated input by (a, b), a = ceil((k + s - 2) / 2) (k - 1 if s >
+    k - 1), b = k + s - 2 - a, and correlates it with the Flax kernel as
+    it stands; torch's conv_transpose2d pads k - 1 - p before and after
+    (plus output_padding after) and correlates with the kernel flipped.
+    So ``weight`` is torch's (in, out, k, k) layout of the Flax
+    (k, k, in, out) kernel flipped in both spatial axes (io/params.py does
+    the flip), p = k - 1 - a and output_padding = b - a.  4x4 at stride 2
+    (pix2pix) gives a = b = 2: p = 1 on both sides, for even and odd
+    sizes; pairs torch cannot pad so raise ValueError."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, use_bias: bool = True,
+                 kernel_init: Init = normal02,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k, s = kernel_size, stride
+        a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+        b = k + s - 2 - a
+        if not (0 <= k - 1 - a and 0 <= b - a < s):
+            raise ValueError(f"SAME ConvTranspose with kernel {k}, stride "
+                             f"{s} has no conv_transpose2d padding")
+        self.dtype = dtype
+        self.stride = s
+        self.padding = k - 1 - a
+        self.output_padding = b - a
+        w = torch.empty(cin, cout, k, k)
+        kernel_init(w, generator)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                               stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding)
         return y if self.bias is None else y + _channel(self.bias, dt)
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,8 +20,26 @@ def require_cuda(device: torch.device | str | None = None) -> torch.device:
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
-    """``torch.device(device)``; a CUDA request without a GPU raises."""
+    """``torch.device(device)``, a CUDA device with its index (the current
+    one when none is given), so that it compares equal to a tensor's
+    ``.device``; a CUDA request without a GPU raises."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda(dev)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and matmuls at full precision inside the block.
+    PyTorch lets cuDNN convolve f32 in TF32 (a 10-bit mantissa) by default;
+    XLA's f32 is f32.  bf16 work is unaffected."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -247,6 +247,33 @@ def test_build_generator_defaults_to_card(port):
     assert port("default_generator_device") == "cuda"
 
 
+# The generic frame engine (infer/engine.py) and the 1x families on the
+# card against the same engine on the CPU, at chip_smoke.py's cut
+# geometries (autoencoder, FSRGAN 4x, SRGAN 2x at 270x480, pix2pix at
+# 256x512), on its phase-4e weights.  f32 (TF32 off): max |du8| <= 1 on
+# < 1e-3 of the bytes (check (a)).  bf16: the two sum each conv in other
+# orders and round every activation to bf16, so they drift apart through
+# the layers like the port and the JAX package on the CPU
+# (tests/test_torch_models_1x.py); the card's bf16 must be no farther from
+# the CPU's f32 engine than the CPU's bf16 is: max within the CPU's + 1,
+# the share > 1 level within 1.25x the CPU's + 1e-3.
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("family", ["autoencoder", "pix2pix", "fsrgan",
+                                    "srgan"])
+def test_generic_engine_card_matches_cpu(port, family, dt):
+    r = port("cuda_generic_vs_cpu", family, dt)
+    print(r)
+    assert r["dtype"] == "torch.uint8" and r["device"] == "cuda"
+    assert r["shape"] == r["want_shape"]
+    if dt == "f32":
+        assert r["card_cpu"]["max"] <= 1 and r["card_cpu"]["gt0"] < 1e-3, r
+    else:
+        card, cpu = r["card_f32"], r["cpu_f32"]
+        assert card["max"] <= cpu["max"] + 1, r
+        assert card["gt1"] <= 1.25 * cpu["gt1"] + 1e-3, r
+
+
 # The probes (denoise_gan_tpu_torch/probes/) at sizes that chip_smoke.py's
 # JAX shapes do not reach: a few rows, element and column counts that are
 # not a multiple of a block or of K6's 32-column slab, one column, and K6

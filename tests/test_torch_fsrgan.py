@@ -136,13 +136,16 @@ def test_batchnorm_train_mode_not_ported(port):
 
 
 def test_build_generator_seeded(port):
-    training, a, b = port("seeded_generators", 3)
-    assert not training
-    assert list(a) == list(b)
-    for name in a:
-        np.testing.assert_array_equal(a[name], b[name])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port("build_family", "pix2pix")
+    """FSRGAN and the 1x families build in eval mode, equal twice from one
+    seed; an unknown family raises ValueError, as JAX's build_models."""
+    for family in ("fsrgan", "autoencoder", "pix2pix"):
+        training, a, b = port("seeded_generators", 3, family)
+        assert not training
+        assert list(a) == list(b)
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name])
+    with pytest.raises(ValueError, match="unknown model family"):
+        port("build_family", "unet")
 
 
 def test_build_generator_defaults_to_card(port):

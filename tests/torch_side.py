@@ -10,6 +10,7 @@ reach the port through ``from_jax_params``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 from pathlib import Path
 
@@ -17,11 +18,14 @@ import numpy as np
 import torch
 
 from denoise_gan_tpu_torch.infer import engine as tengine
+from denoise_gan_tpu_torch.infer import fast as tfast
 from denoise_gan_tpu_torch.infer import kernel_engine as tke
+from denoise_gan_tpu_torch.infer import tile as ttile
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models import fsrgan as tfsrgan
 from denoise_gan_tpu_torch.models import srgan as tsrgan
+from denoise_gan_tpu_torch.models import layers as tlayers
 from denoise_gan_tpu_torch.models.layers import BatchNorm
 from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import image as timage
@@ -138,10 +142,10 @@ def batchnorm_train_forward():
     BatchNorm(4).train()(torch.zeros(1, 4, 2, 2))
 
 
-def seeded_generators(seed):
-    """Two generators built from one seed: (training flag of the first,
-    both state dicts as numpy)."""
-    a, b = (build_generator("fsrgan", device="cpu",
+def seeded_generators(seed, family="fsrgan"):
+    """Two `family` generators built from one seed: (training flag of the
+    first, both state dicts as numpy)."""
+    a, b = (build_generator(family, device="cpu",
                             generator=torch.Generator().manual_seed(seed))
             for _ in range(2))
     return (a.training, {k: _np(v) for k, v in a.state_dict().items()},
@@ -1780,3 +1784,238 @@ def cuda_probe_mbpipe(reps, chains, sync="own", seed=None, bands=None):
     state = tmb.initial_state("cuda") if seed is None else \
         tmb.seeded_state(seed, bands, "cuda")
     return tmb.check(state, reps, chains, sync)
+
+
+# ---------------------------------------------------------------------------
+# the 1x families, infer/tile.py, infer/engine.py's frame engine, infer/fast.py
+
+ACC = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def generator_1x_forward(family, params, stats, xs, dts):
+    """The port's `family` generator loaded from Flax trees, on each input
+    of `xs` in each compute dtype of `dts`: {dt: [outputs]}."""
+    out = {}
+    for dt in dts:
+        model = from_jax_params(build_generator(
+            family, dtype=DTYPES[dt], device="cpu"), params, stats)
+        with torch.no_grad():
+            out[dt] = [_np(model(torch.from_numpy(x))) for x in xs]
+    return out
+
+
+class _Scope(torch.nn.Module):
+    """One layer under a Flax-like scope name, for from_jax_params."""
+
+    def __init__(self, name, layer):
+        super().__init__()
+        setattr(self, name, layer)
+        self.name = name
+
+    def forward(self, x):
+        nchw = getattr(self, self.name)(torch.from_numpy(x).permute(
+            0, 3, 1, 2))
+        return _np(nchw.permute(0, 2, 3, 1))
+
+
+def layer_forward(kind, x, kernel=None, bias=None, stride=1):
+    """`kind` "conv" (Conv, SAME at `stride`), "conv_transpose"
+    (ConvTranspose, 4x4 stride 2 SAME), each loaded from its Flax kernel
+    and bias through from_jax_params, or "max_pool" (max_pool_same), on
+    NHWC x."""
+    if kind == "max_pool":
+        return _np(tlayers.max_pool_same(torch.from_numpy(x).permute(
+            0, 3, 1, 2)).permute(0, 2, 3, 1))
+    kh, _, cin, cout = kernel.shape
+    if kind == "conv":
+        scope = _Scope("Conv_0", tlayers.Conv(cin, cout, kh, stride=stride))
+    else:
+        scope = _Scope("ConvTranspose_0", tlayers.ConvTranspose(
+            cin, cout, kh, stride))
+    from_jax_params(scope, {scope.name: {"kernel": kernel, "bias": bias}})
+    with torch.no_grad():
+        return scope(x)
+
+
+def tile_plans(cases):
+    """plan_tiles and _feather for each (h, w, tile, overlap, scale)."""
+    return [(ttile.plan_tiles(h, w, t, o), ttile._feather(t, s, o))
+            for h, w, t, o, s in cases]
+
+
+def _pattern_fn(scale, pattern, seen):
+    """The tests' per-tile function: nearest upsampling by `scale`, halved,
+    plus a fixed (T*scale, T*scale, C) pattern, so each output pixel
+    depends on its place in the tile; records the batch sizes it sees."""
+    p = torch.from_numpy(pattern)
+
+    def fn(tiles):
+        seen.append(int(tiles.shape[0]))
+        up = tiles.repeat_interleave(scale, 1).repeat_interleave(scale, 2)
+        return up * 0.5 + p
+    return fn
+
+
+def tiled_apply_case(img, tile, overlap, scale, batch, pattern):
+    """tiled_apply of the pattern function on img: (output, the batch
+    sizes the function saw)."""
+    seen = []
+    out = ttile.tiled_apply(_pattern_fn(scale, pattern, seen),
+                            torch.from_numpy(img), tile, overlap, scale,
+                            batch)
+    return _np(out), seen
+
+
+def extract_tiles(img, tile, overlap):
+    return _np(ttile.extract_tiles(torch.from_numpy(img), tile, overlap))
+
+
+def phase_feather(tile, scale, overlap, c):
+    return tengine._phase_feather(tile, scale, overlap, c)
+
+
+def overlap_add(tiles, ny, nx, tile, stride):
+    return _np(tengine.overlap_add(torch.from_numpy(tiles), ny, nx, tile,
+                                   stride))
+
+
+def _affine_forward(a, b):
+    """The engine tests' forward_coarse: x[..., k % 3] * a[k] + b[:h, :w,
+    k] on (N, h, w, 3), to len(a) channels."""
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    idx = torch.arange(a.shape[0]) % 3
+
+    def forward(x):
+        h, w = x.shape[1:3]
+        return x[..., idx] * a + b[:h, :w]
+    return forward
+
+
+def frame_engine_affine(a, b, frames, height, width, scale, **kw):
+    """build_frame_engine of the affine forward (options `kw`, acc_dtype by
+    name) on the CPU, on each of `frames` (or on them stacked, with
+    frames_per_call > 1)."""
+    kw["acc_dtype"] = ACC[kw.get("acc_dtype", "f32")]
+    run = tengine.build_frame_engine(_affine_forward(a, b), height, width,
+                                     scale, device="cpu", **kw)
+    if kw.get("frames_per_call", 1) > 1:
+        return _np(run(torch.from_numpy(np.stack(frames))))
+    return [_np(run(torch.from_numpy(f))) for f in frames]
+
+
+def frame_engine_refusals(height, width):
+    """The messages of what build_frame_engine and its fn refuse: bgr at
+    scale 4; a frame of the wrong shape; one on another device."""
+    fwd = _affine_forward(np.ones(3, np.float32),
+                          np.zeros((64, 64, 3), np.float32))
+    out = []
+    for attempt in (
+            lambda: tengine.build_frame_engine(fwd, height, width, 4,
+                                               16, 4, bgr=True,
+                                               device="cpu"),
+            lambda: tengine.build_frame_engine(fwd, height, width, 1, 16, 4,
+                                               device="cpu")(
+                torch.zeros(height + 1, width, 3)),
+            lambda: tengine.build_frame_engine(fwd, height, width, 1, 16, 4,
+                                               device="cpu")(
+                torch.zeros(height, width, 3, device="meta"))):
+        try:
+            attempt()
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def frame_engine_generator(family, params, stats, frames, tile, overlap,
+                           stitch, dt="f32", out_uint8=True):
+    """The 1x frame engine as the video CLI builds it: the family's plain
+    generator (compute dtype `dt`) per tile, scale 1, on the CPU."""
+    model = from_jax_params(build_generator(
+        family, dtype=DTYPES[dt], device="cpu"), params, stats)
+    height, width = frames[0].shape[:2]
+    run = tengine.build_frame_engine(model, height, width, 1, tile, overlap,
+                                     out_uint8=out_uint8, stitch=stitch,
+                                     device="cpu")
+    return [_np(run(torch.from_numpy(f))) for f in frames]
+
+
+def fast_paths(family, scale, params, stats, x):
+    """build_fast_coarse (bf16, f32 out) and build_fast_forward (bf16) of
+    the port generator on x: (coarse output, its scale, forward output).
+    The coarse output is None for a 1x family, whose build_fast_coarse
+    raises ValueError (its message is returned in its place)."""
+    model = from_jax_params(build_generator(family, device="cpu",
+                                            scale=scale), params, stats)
+    xt = torch.from_numpy(x)
+    try:
+        fwd, s = tfast.build_fast_coarse(model)
+        coarse = _np(fwd(xt))
+    except ValueError as e:
+        coarse, s = str(e), None
+    return coarse, s, _np(tfast.build_fast_forward(model)(xt))
+
+
+def scatter_and_perm(w, m, c_next):
+    return tfast.scatter_conv_kernel(w, m), tfast.d2s_perm(m, c_next)
+
+
+def cuda_requests_1x():
+    """With CUDA absent: the RuntimeError message of each new CUDA entry
+    point (build_generator for each family, SRGAN 2x, build_frame_engine
+    at its default device), None where one did not raise."""
+    fwd = _affine_forward(np.ones(3, np.float32),
+                          np.zeros((64, 64, 3), np.float32))
+    attempts = [lambda f=f: build_generator(f)
+                for f in ("autoencoder", "pix2pix", "fsrgan", "srgan")]
+    attempts += [lambda: build_generator("srgan", scale=2),
+                 lambda: tengine.build_frame_engine(fwd, 40, 56, 1, 16, 4)]
+    messages = []
+    with _no_cuda():
+        for attempt in attempts:
+            try:
+                attempt()
+                messages.append(None)
+            except RuntimeError as e:
+                messages.append(str(e))
+    return messages
+
+
+def cuda_generic_vs_cpu(family, dt):
+    """chip_smoke.py's check (a) as a test: `family`'s generic engine
+    (chip_smoke.generic_engine, its phase-4e weights) at its cut geometry,
+    compute dtype `dt`, on the card and on the CPU, and the f32 engine on
+    the CPU.  Returns u8 stats: the card against the CPU in `dt`, the card
+    and the CPU in `dt` each against the CPU in f32, and the card output's
+    shape (and the one expected), dtype and device."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(cs.SEED + 1)
+    if family in cs.TILES_1X:
+        model = build_generator(family, device="cpu")
+        model = from_jax_params(model, *cs.seeded_flax_tree(model, rng))
+    else:
+        model = build_generator(family, device="cpu", scale=2 if
+                                family == "srgan" else 4)
+        model = from_jax_params(model, *cs.seeded_flax_tree(
+            model, rng, *((cs.SRGAN_BODY_GAIN, 1.0) if family == "srgan"
+                          else ())))
+    height, width = cs.CUT[family]
+    frame = cs.seeded_frame(rng, height, width, "cpu")
+    card = copy.deepcopy(model).cuda()
+    got = cs.generic_engine(family, card, height, width, DTYPES[dt]
+                            or torch.float32)(frame.cuda())
+    cpu = cs.generic_engine(family, model, height, width, DTYPES[dt]
+                            or torch.float32)(frame)
+    f32 = cs.generic_engine(family, model, height, width,
+                            torch.float32)(frame)
+
+    def stats(a, b):
+        d = (a.cpu().int() - b.int()).abs()
+        return {"max": int(d.max()), "gt0": float((d > 0).float().mean()),
+                "gt1": float((d > 1).float().mean())}
+    scale = {"fsrgan": 4, "srgan": 2}.get(family, 1)
+    return {"card_cpu": stats(got, cpu), "card_f32": stats(got, f32),
+            "cpu_f32": stats(cpu, f32), "shape": tuple(got.shape),
+            "want_shape": (height * scale, width * scale, 3),
+            "dtype": str(got.dtype), "device": got.device.type}
