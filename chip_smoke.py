@@ -204,6 +204,34 @@ Phases, each printed on its own line:
    frames/s and torch.cuda.max_memory_allocated per engine and dtype, the
    FSRGAN kernel engines' frames/s beside them, and the card's name and
    power limit.
+4f. The CLIs (infer/video.py, infer/image.py) as a user runs them, in
+   this process, on the card: seeded FSRGAN, SRGAN 4x and autoencoder
+   generators written as .dgt exports by io/checkpoint.py::
+   export_generator (the FSRGAN and SRGAN of phase 3, an autoencoder from
+   rng SEED + 2), and a 6-frame 1080p RGBA AVI (io/avi.py: three frames of
+   colour waves, then a scene change to three of the structured frame).
+   The video CLI runs FSRGAN by default (the kernel engine, w8a8 calibrated
+   on frames 0, 1, 3, 4, uint8 BGR in, RGB out packed to RGBA on the card,
+   unscored), scored (f32 RGB in, frame 0 scored), with --q8 2 and --q8 0,
+   SRGAN w8a8, FSRGAN's default again (warm: the first run pays the CLI's
+   one-time costs), the autoencoder's crop engine (128/8) and FSRGAN with
+   --kernel_tail 0 (the coarse engine, 144/4), each writing an RGBA AVI.
+   Asserted: every frame read back from each output equals the same engine
+   built and called here on the same frames with the same calibration; with
+   every launch count zeroed before each run and read after it, K1 (FSRGAN)
+   or K2 (SRGAN) fired once a frame in its mode, and the other runs
+   launched no hand kernel; the scored run's PSNR and SSIM equal
+   ops/metrics.py's on its frame against the bicubic upscale (within 1e-5);
+   the image CLI on two 1080p .npy frames (FSRGAN, whole image) writes the
+   direct forward's bytes. Printed: each run's frames/s by the host clock
+   (decode, copies and writing included) beside the same engine's frames/s
+   alone, and the AVI reader's ms per 1080p frame, the writer's per
+   4320x7680 RGBA frame, the CLI's packing of it on the card with its copy
+   to pinned memory, and its uint8 copy to the host (pinned and pageable);
+   a scored frame's parts on the card (bicubic reference, cold and warm,
+   levels to f32, PSNR, SSIM); and the default FSRGAN run, warm, on a
+   24-frame clip without an output and writing one (the run fails where the
+   disk has no room for it). The files are deleted.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -270,7 +298,9 @@ from __future__ import annotations
 
 import copy
 import json
+import shutil
 import time
+from pathlib import Path
 from dataclasses import dataclass
 from typing import Callable
 
@@ -279,13 +309,21 @@ import torch
 
 from denoise_gan_tpu_torch.infer import engine as generic
 from denoise_gan_tpu_torch.infer import kernel_engine as ke
-from denoise_gan_tpu_torch.infer.fast import build_fast_coarse
+from denoise_gan_tpu_torch.infer import image as image_cli
+from denoise_gan_tpu_torch.infer import video as video_cli
+from denoise_gan_tpu_torch.infer.fast import build_fast_coarse, \
+    build_fast_forward
+from denoise_gan_tpu_torch.io import avi
+from denoise_gan_tpu_torch.io.checkpoint import export_generator
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops import _build
 from denoise_gan_tpu_torch.ops import mbconv
+from denoise_gan_tpu_torch.ops import image as image_ops
+from denoise_gan_tpu_torch.ops import metrics
+from denoise_gan_tpu_torch.ops.image import resize_bicubic
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
@@ -344,6 +382,10 @@ TILE_4X = (144, 4)
 CUT = {"autoencoder": (270, 480), "pix2pix": (256, 512),
        "fsrgan": (270, 480), "srgan": (270, 480)}
 GENERIC_FRAMES = 6
+# phase 4f: the CLIs' frames, and their files' directory (deleted after)
+CLI_FRAMES = 6
+STEADY_REPEATS = 4                # the steady run's clip: the frames x 4
+CLI_DIR = Path(__file__).resolve().parent / "_cli_smoke"
 # phase 4e check (b) in bf16: PERF.md section 2's bf16 envelope of the port
 # against its references (SRGAN, the K3 body)
 BF16_ENVELOPE = 5e-2
@@ -2249,6 +2291,323 @@ def generic_engines(models: dict, frames, smi: str) -> None:
     print(f"  phase 4e took {time.perf_counter() - t0:.1f} s")
 
 
+def cli_frames(rng) -> list[np.ndarray]:
+    """Phase 4f's video: BGR uint8 1080p frames, three of colour waves
+    drifting right, then three of the structured frame (a scene
+    change)."""
+    wave = seeded_frame(rng, HEIGHT, WIDTH, "cpu").numpy()
+    out = []
+    for i in range(CLI_FRAMES):
+        f = np.roll(wave, 8 * i, axis=1) if i < 3 else np.roll(
+            structured_frame(HEIGHT, WIDTH), 8 * i, axis=0)
+        out.append(np.ascontiguousarray(
+            (np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8)[..., ::-1]))
+    return out
+
+
+def rgb01(frame_bgr: np.ndarray, dev) -> torch.Tensor:
+    """A BGR uint8 frame as RGB f32 [0, 1] on the card, divided on the
+    host, as the CLI divides it."""
+    return torch.from_numpy(frame_bgr[..., ::-1].astype(np.float32)
+                            / 255.0).to(dev)
+
+
+def run_cli(what: str, argv: list[str], want: dict[str, int]):
+    """One video CLI run with every launch count zeroed just before and
+    read just after: the counts must equal `want` (key: launches).
+    Returns (result, the output's frames, BGR)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    result = video_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = fired()
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    reader = avi.VideoReader(argv[argv.index("--output_video") + 1])
+    frames = [reader.read()[1] for _ in range(reader.frame_count)]
+    reader.release()
+    print(f"  {what}: {result['frames']} frames, {result['fps']:.2f} "
+          f"frames/s by the host clock (decode, copies, writing; "
+          f"{seconds:.1f} s with the set-up), launches {got}")
+    return result, frames
+
+
+def same_frames(what: str, got: list[np.ndarray], want: list[np.ndarray]
+                ) -> None:
+    if len(got) != len(want) or any(
+            g.shape != w.shape or not np.array_equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: the CLI's frames are not the "
+                             "engine's")
+    print(f"    {what}: {len(got)} frames {got[0].shape} equal to the "
+          "engine called directly")
+
+
+def io_times(frames: list[np.ndarray], out4k: torch.Tensor) -> None:
+    """Phase 4f (printed): the AVI reader's ms per input frame; the
+    writer's per RGBA output frame (written only; warm page cache); the
+    CLI's RGBA packing on the card with the copy to pinned memory, and a
+    uint8 frame's copy to pinned and to pageable host memory; the parts of
+    a scored frame on the card: the bicubic reference (its first call
+    builds the weights and moves them to the card; later calls reuse
+    them), the output's uint8 levels to f32, PSNR and SSIM."""
+    path = CLI_DIR / "io.avi"
+    packed = video_cli._rgba(out4k).cpu().numpy()
+    writer = avi.VideoWriter(str(path), 25.0, (out4k.shape[1],
+                                                out4k.shape[0]))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        writer.write_rgba(packed)
+    write_ms = (time.perf_counter() - t0) / 3 * 1e3
+    writer.release()
+    path.unlink()
+    reader = avi.VideoReader(str(CLI_DIR / "in.avi"))
+    t0 = time.perf_counter()
+    for _ in range(len(frames)):
+        reader.read()
+    read_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    reader.release()
+
+    def card_ms(fn, n=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n * 1e3
+
+    copy_ms = {}
+    for name, src, pin in (("pinned", lambda: out4k, True),
+                           ("pageable", lambda: out4k, False),
+                           ("pack+pinned", lambda: video_cli._rgba(out4k),
+                            True)):
+        host = torch.empty(src().shape, dtype=torch.uint8, pin_memory=pin)
+        _, copy_ms[name] = card_ms(lambda: host.copy_(src(),
+                                                      non_blocking=True))
+    # a scored frame's parts, as the CLI takes them
+    x01 = rgb01(frames[0], out4k.device)
+    levels = video_cli._levels(out4k.device)
+    h4, w4 = out4k.shape[:2]
+
+    def bicubic():
+        return resize_bicubic(x01[None], h4, w4).clamp(0.0, 1.0)
+
+    image_ops._bicubic_matrix.cache_clear()
+    _, cold_ms = card_ms(bicubic, 1)
+    ref, bicubic_ms = card_ms(bicubic)
+    out01, levels_ms = card_ms(lambda: levels[out4k.long()][None])
+    _, psnr_ms = card_ms(lambda: float(metrics.psnr(out01, ref)[0]))
+    _, ssim_ms = card_ms(lambda: float(metrics.ssim(out01, ref)[0]))
+    t0 = time.perf_counter()
+    for f in frames:
+        video_cli._rgb01(f)
+    f32_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    print(f"  a scored {h4}x{w4} frame on the card: bicubic reference "
+          f"{bicubic_ms:.2f} ms (its first call, building the weights and "
+          f"moving them to the card: {cold_ms:.2f} ms), the output's levels "
+          f"to f32 {levels_ms:.2f} ms, PSNR {psnr_ms:.2f} ms, SSIM "
+          f"{ssim_ms:.2f} ms (each read back); the scored path's host "
+          f"conversion of a frame to RGB f32: {f32_ms:.2f} ms")
+    in_mb, out_mb = frames[0].size * 4 / 3e6, packed.size / 1e6
+    print(f"  AVI read {read_ms:.2f} ms per {HEIGHT}x{WIDTH} frame "
+          f"({in_mb:.1f} MB RGBA); write {write_ms:.2f} ms per {h4}x{w4} "
+          f"RGBA frame ({out_mb:.1f} MB); on the card, packing to RGBA and "
+          f"the copy to pinned memory {copy_ms['pack+pinned']:.2f} ms; the "
+          f"uint8 frame ({out4k.numel() / 1e6:.1f} MB) to the host "
+          f"{copy_ms['pinned']:.2f} ms pinned, {copy_ms['pageable']:.2f} ms "
+          "pageable")
+
+
+def cli_phase(models: dict, smi: str) -> None:
+    """Phase 4f (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = next(models["fsrgan"].parameters()).device
+    rng = np.random.default_rng(SEED + 2)
+    ae = build_generator("autoencoder", device=dev)
+    ae = from_jax_params(ae, *seeded_flax_tree(ae, rng))
+    print(f"phase 4f CLIs [{smi}]:")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir()
+    try:
+        exports = {}
+        for name, model, scale in (("fsrgan", models["fsrgan"], 4),
+                                   ("srgan", models["srgan"], 4),
+                                   ("autoencoder", ae, 1)):
+            exports[name] = str(CLI_DIR / f"{name}.dgt")
+            export_generator(exports[name], name, scale, model)
+        frames = cli_frames(rng)
+        video = str(CLI_DIR / "in.avi")
+        writer = avi.VideoWriter(video, 25.0, (WIDTH, HEIGHT))
+        for f in frames:
+            writer.write(f)
+        writer.release()
+        cli_runs(models, ae, exports, video, frames, dev)
+        cli_image(models["fsrgan"], exports["fsrgan"], frames, dev)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    print(f"  phase 4f took {time.perf_counter() - t0:.1f} s")
+
+
+def cli_runs(models, ae, exports, video, frames, dev) -> None:
+    """Phase 4f's video CLI runs, each against its engine called here."""
+    calib = [rgb01(frames[i], dev) for i in (0, 1, 3, 4)]
+    u8_in = [torch.from_numpy(f).to(dev) for f in frames]
+    f32_in = [rgb01(f, dev) for f in frames]
+    n = len(frames)
+
+    def argv(family, out, *flags):
+        return ["--input_video", video, "--output_video",
+                str(CLI_DIR / out), "--model", exports[family],
+                "--score", "0", *flags]
+
+    def outputs(engine, inputs):
+        return [engine(x).cpu().numpy() for x in inputs]
+
+    def rgb(read_back):
+        # the AVI reads back BGR; the CLI's engines emit RGB for it
+        return [f[..., ::-1] for f in read_back]
+
+    last = None
+    for fam, mode, flags in ((FAMILIES[0], "w8a8", ()),
+                             (FAMILIES[0], "qh8", ("--q8", "2")),
+                             (FAMILIES[0], "bf16", ("--q8", "0")),
+                             (FAMILIES[1], "w8a8", ())):
+        what = f"{fam.name} kernel engine {mode}, u8/BGR in, RGB out"
+        _, got = run_cli(what, argv(fam.name, f"{fam.name}_{mode}.avi",
+                                    *flags),
+                         {fam.key(fam.kernel, mode): n})
+        kw = {} if mode == "bf16" else dict(q8_calib_frame=calib,
+                                             qh8=mode == "qh8")
+        engine = fam.build(models[fam.name], HEIGHT, WIDTH, u8_input=True,
+                           bgr_input=True, **kw)
+        want = outputs(engine, u8_in)
+        same_frames(what, rgb(got), want)
+        print(f"    the engine alone: "
+              f"{engine_fps(engine, u8_in[:2], GENERIC_FRAMES):.2f} "
+              "frames/s (uint8 in, output on the card)")
+        last = engine(u8_in[0])
+        if (fam.name, mode) == ("fsrgan", "w8a8"):
+            first = want
+    # the first run paid the CLI's one-time costs (pinned host blocks,
+    # cuDNN's first calls on these shapes): the default once more, warm
+    fam = FAMILIES[0]
+    what = "fsrgan kernel engine w8a8 again (warm)"
+    _, got = run_cli(what, argv("fsrgan", "fsrgan_warm.avi"),
+                     {fam.key(fam.kernel, "w8a8"): n})
+    same_frames(what, rgb(got), first)
+
+    # scored: f32 RGB in, frame 0 scored against the bicubic upscale
+    what = "fsrgan kernel engine w8a8 scored"
+    scored_argv = argv("fsrgan", "fsrgan_scored.avi")
+    scored_argv[scored_argv.index("--score") + 1] = "1"
+    result, got = run_cli(what, scored_argv,
+                          {fam.key(fam.kernel, "w8a8"): n})
+    engine = fam.build(models["fsrgan"], HEIGHT, WIDTH, q8_calib_frame=calib)
+    want = outputs(engine, f32_in)
+    same_frames(what, rgb(got), want)
+    out01 = video_cli._levels(dev)[torch.from_numpy(want[0]).to(
+        dev).long()][None]
+    ref = resize_bicubic(f32_in[0][None], 4 * HEIGHT, 4 * WIDTH).clamp(
+        0.0, 1.0)
+    p, q = float(metrics.psnr(out01, ref)[0]), float(metrics.ssim(out01,
+                                                                  ref)[0])
+    print(f"    scored frames {result['scored_frames']}: psnr "
+          f"{result['psnr']:.6f} (direct {p:.6f}), ssim {result['ssim']:.6f}"
+          f" (direct {q:.6f})")
+    if result["scored_frames"] != 1 or abs(result["psnr"] - p) > 1e-5 or \
+            abs(result["ssim"] - q) > 1e-5:
+        raise AssertionError(f"{what}: the CLI's scores are not "
+                             "ops/metrics.py's")
+
+    # the autoencoder's crop engine and FSRGAN's coarse engine: plain
+    # PyTorch, no hand kernel
+    what = "autoencoder crop engine 128/8"
+    _, got = run_cli(what, argv("autoencoder", "ae.avi"), {})
+    fwd = build_fast_forward(ae)
+    engine = generic.build_frame_engine(fwd, HEIGHT, WIDTH, 1, 128, 8,
+                                        out_uint8=True, stitch="crop",
+                                        acc_dtype=torch.bfloat16,
+                                        device=dev)
+    same_frames(what, rgb(got), outputs(engine, f32_in))
+    what = "fsrgan coarse engine 144/4 (--kernel_tail 0)"
+    _, got = run_cli(what, argv("fsrgan", "coarse.avi", "--kernel_tail",
+                                "0"), {})
+    fwd, scale = build_fast_coarse(models["fsrgan"],
+                                   out_dtype=torch.bfloat16)
+    engine = generic.build_frame_engine(fwd, HEIGHT, WIDTH, scale, 144, 4,
+                                        out_uint8=True, stitch="crop",
+                                        acc_dtype=torch.bfloat16,
+                                        device=dev)
+    same_frames(what, rgb(got), outputs(engine, f32_in))
+    io_times(frames, last)
+    cli_steady(exports["fsrgan"], frames, n)
+
+
+def cli_steady(export: str, frames: list[np.ndarray], n: int) -> None:
+    """Phase 4f (printed): the default FSRGAN run, warm, on a clip of
+    STEADY_REPEATS times the frames, without an output and writing one:
+    frames/s by the host clock.  Fails where the disk has no room for
+    three times the output."""
+    video = CLI_DIR / "long.avi"
+    writer = avi.VideoWriter(str(video), 25.0, (WIDTH, HEIGHT))
+    for f in frames * STEADY_REPEATS:
+        writer.write(f)
+    writer.release()
+    total = n * STEADY_REPEATS
+    fam = FAMILIES[0]
+    out = CLI_DIR / "long_out.avi"
+    # three times the output (RGBA, 16 x the input's pixels) free
+    need = 3 * total * 64 * HEIGHT * WIDTH
+    free = shutil.disk_usage(CLI_DIR).free
+    if free < need:
+        raise AssertionError(f"steady run: {free} bytes free, {need} "
+                             "needed for its output")
+    for label, path in (("without an output", ""),
+                        ("writing the RGBA AVI", str(out))):
+        reset_counts()
+        result = video_cli.main(["--input_video", str(video),
+                                 "--output_video", path, "--model", export,
+                                 "--score", "0"])
+        if fired() != {fam.key(fam.kernel, "w8a8"): total}:
+            raise AssertionError(f"steady run launches {fired()}")
+        print(f"  fsrgan default on {total} frames, {label}: "
+              f"{result['fps']:.2f} frames/s by the host clock")
+        if path:
+            out.unlink()
+    video.unlink()
+
+
+def cli_image(model, export: str, frames, dev) -> None:
+    """Phase 4f: the image CLI on two 1080p .npy frames (FSRGAN, the whole
+    image through the bf16 coarse-tail forward) against that forward
+    called here, saved as the CLI saves."""
+    src, dst = CLI_DIR / "images", CLI_DIR / "images_out"
+    src.mkdir()
+    for i in (0, 3):
+        np.save(src / f"f{i}.npy", frames[i][..., ::-1])
+    reset_counts()
+    t0 = time.perf_counter()
+    image_cli.main(["--image_dir", str(src), "--output_dir", str(dst),
+                    "--model", export])
+    seconds = time.perf_counter() - t0
+    if fired():
+        raise AssertionError(f"image CLI launched hand kernels: {fired()}")
+    fwd = build_fast_forward(model)
+    for i in (0, 3):
+        x = rgb01(frames[i], dev)
+        sr = (fwd(x[None])[0].float().cpu().numpy() + 1.0) / 2.0
+        want = np.clip(sr * 255.0, 0, 255).astype(np.uint8)
+        got = np.load(dst / f"f{i}.npy")
+        if got.shape != (4 * HEIGHT, 4 * WIDTH, 3) or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"image CLI f{i}.npy: not the forward's "
+                                 "bytes")
+    print(f"  image CLI, fsrgan whole image: 2 .npy 1080p frames -> "
+          f"{(4 * HEIGHT, 4 * WIDTH, 3)} uint8, equal to the forward called "
+          f"directly ({seconds:.1f} s with the set-up)")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -2328,6 +2687,8 @@ def main() -> None:
 
     # ---- phase 4e: the generic frame engine and the 1x families
     generic_engines(models, frames, smi)
+    # ---- phase 4f: the CLIs on .dgt exports and an RGBA AVI
+    cli_phase(models, smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

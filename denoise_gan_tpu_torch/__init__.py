@@ -10,6 +10,9 @@ Ported so far: FSRGAN and SRGAN 4x inference through the kernel engines
 hand-written CUDA kernels (``csrc/``) with plain PyTorch twins (``ops/``);
 the four generators (``models/``); the generic frame engine, overlap
 tiling and the coarse-tail rewrite (``infer/engine.py``, ``infer/tile.py``,
-``infer/fast.py``) in plain PyTorch; and the TPU probes' counterparts
-(``probes/``).
+``infer/fast.py``) in plain PyTorch; the serving entry points: ``.dgt``
+exports read and written without flax (``io/``), the video, image and
+comparison CLIs (``infer/video.py``, ``infer/image.py``, ``unit_test.py``)
+with an uncompressed RGBA AVI that needs no cv2 (``io/avi.py``); and the
+TPU probes' counterparts (``probes/``).
 """

@@ -1,0 +1,81 @@
+"""``.dgt`` generator exports (denoise_gan_tpu/io/checkpoint.py:66-145),
+read and written without flax: the magic ``DGTPU1\\n``, the header's
+length as 8 little-endian bytes, a JSON header (family, scale, format,
+role), then flax's msgpack of ``{"params": ..., "batch_stats": ...}``
+(io/flax_msgpack.py).
+
+Not ported: Orbax training checkpoints (they come with training), and the
+JAX package's on-the-fly reading of the reference's Keras ``.h5`` files,
+which needs h5py: convert such a file on a CPU host with the JAX package
+(``python tools/convert_h5.py --h5 in.h5 --out out.dgt``)
+first.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import torch
+
+from denoise_gan_tpu_torch.io import flax_msgpack
+from denoise_gan_tpu_torch.io.params import from_jax_params, to_jax_trees
+from denoise_gan_tpu_torch.models import build_generator
+
+EXPORT_MAGIC = b"DGTPU1\n"
+HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+
+
+def read_export(path: str) -> tuple[dict, bytes]:
+    """(config dict, raw msgpack payload).  A file that is not an export
+    raises ValueError; an HDF5 file says how to convert it."""
+    with open(path, "rb") as f:
+        magic = f.read(len(EXPORT_MAGIC))
+        if magic != EXPORT_MAGIC:
+            f.seek(0)
+            if f.read(len(HDF5_MAGIC)) == HDF5_MAGIC:
+                raise ValueError(
+                    f"{path} is an HDF5 (Keras .h5) file; the port reads "
+                    "only .dgt exports. Convert it on a CPU host with the "
+                    "JAX package: python tools/convert_h5.py --h5 <in.h5> "
+                    "--out <out.dgt>")
+            raise ValueError(f"{path} is not a denoise_gan_tpu export")
+        hlen = int.from_bytes(f.read(8), "little")
+        config = json.loads(f.read(hlen))
+        payload = f.read()
+    return config, payload
+
+
+def load_generator(path: str, device: torch.device | str = "cuda",
+                   dtype: torch.dtype | None = None
+                   ) -> tuple[dict, torch.nn.Module]:
+    """(config, generator in eval mode on `device`, compute `dtype`) from a
+    ``.dgt`` export.  The card unless the caller asks for the CPU: without
+    a GPU a CUDA request raises RuntimeError.  A discriminator export
+    raises ValueError, as the JAX package's load_generator."""
+    config, payload = read_export(path)
+    if config.get("role", "generator") != "generator":
+        raise ValueError(f"{path} is a {config['role']} export, "
+                         "not a generator")
+    trees = flax_msgpack.loads(payload)
+    model = build_generator(config["family"], dtype=dtype, device=device,
+                            scale=config["scale"])
+    return config, from_jax_params(model, trees["params"],
+                                   trees.get("batch_stats", {}))
+
+
+def export_generator(path: str, family: str, scale: int,
+                     model: torch.nn.Module) -> None:
+    """Write `model` as a ``.dgt`` generator export that the JAX package's
+    read_export and load_generator read: the same header, and the Flax
+    trees of ``to_jax_trees`` in flax's msgpack form."""
+    params, stats = to_jax_trees(model)
+    payload = flax_msgpack.dumps({"params": params, "batch_stats": stats})
+    header = json.dumps({"family": family, "scale": scale, "format": 1,
+                         "role": "generator"}).encode()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(EXPORT_MAGIC)
+        f.write(len(header).to_bytes(8, "little"))
+        f.write(header)
+        f.write(payload)

@@ -2,7 +2,9 @@
 
 ``from_jax_params`` fills a port module from Flax's nested ``params`` and
 ``batch_stats`` dicts (the trees ``denoise_gan_tpu/io/checkpoint.py``
-exports), with numpy-convertible leaves.  The port's module names mirror the
+exports), with numpy-convertible leaves or torch tensors (io/
+flax_msgpack.py reads bf16 leaves as bf16 tensors); ``to_jax_trees`` is
+its inverse.  The port's module names mirror the
 Flax scopes, so ``body/InvertedResidual_1/expand/kernel`` becomes
 ``body.InvertedResidual_1.expand.weight``.
 """
@@ -45,6 +47,8 @@ def jax_state_dict(params: Mapping,
     out = {}
     for tree in (params, batch_stats or {}):
         for path, leaf in _leaves(tree):
+            if isinstance(leaf, torch.Tensor):
+                leaf = leaf.detach().float().cpu().numpy()
             arr = np.asarray(leaf, np.float32)
             name = path[-1]
             if name == "kernel":
@@ -71,3 +75,25 @@ def from_jax_params(model: nn.Module, params: Mapping,
                              f"model shape {tuple(own[name].shape)}")
     model.load_state_dict(state)
     return model
+
+
+def to_jax_trees(model: nn.Module) -> tuple[dict, dict]:
+    """The Flax (params, batch_stats) trees of `model`, f32 numpy leaves:
+    the exact inverse of ``jax_state_dict``.  A ``weight`` becomes the
+    HWIO ``kernel`` (a ConvTranspose scope's flipped back), BatchNorm
+    ``mean``/``var`` go to batch_stats, every other tensor to params."""
+    params, stats = {}, {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            if path[-1].startswith("ConvTranspose"):
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
+        tree = stats if leaf in ("mean", "var") else params
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = np.ascontiguousarray(arr)
+    return params, stats

@@ -34,6 +34,11 @@ dyadic_up1_ and dyadic_h) they do so without the repair, and on inputs
 where every up1 product has one sign (ops/tail.py::one_sign_up1_ and
 one_sign_h: sum errors add up there, and the bias cancels the large sums)
 the bound must hold.
+The video CLI (infer/video.py) on the card against the CPU on the same
+.dgt export and RGBA AVI: the f32 paths (--fast 0, whole frame and
+tiled), max 1 level on < 1e-3 of the bytes, PSNR within 0.05 dB; and the
+CLI's kernel engine (K1 or K2 launched once a frame) byte for byte
+against the same engine called directly on the card.
 The canvas epilogue (the bf16 tanh that the u8 epilogue rounds) is held to
 the same: equal in the int8 modes, and in bf16 apart by at most
 2**-8 (one bf16 ulp at the top of tanh's range: one rounding apart) on
@@ -483,3 +488,47 @@ def test_probe_mbpipe_seeded_bands_match_plain(port, mode, reps):
 def test_probe_mbpipe_refuses_on_card(port, bad):
     with pytest.raises(ValueError):
         port("probe_mbpipe_bad_input", bad, device="cuda")
+
+
+# (id, family, CLI flags)
+CLI_F32_PATHS = [
+    ("autoencoder-whole", "autoencoder", ["--fast", "0", "--tile", "0"]),
+    ("fsrgan-tiled", "fsrgan", ["--fast", "0", "--tile", "48",
+                                "--tile_overlap", "8"]),
+]
+
+
+@pytest.fixture(scope="module")
+def serving(port):
+    """tests/torch_side_serving.py in a child of its own (`port` skips
+    first without a card)."""
+    with torch_process("torch_side_serving") as call:
+        yield call
+
+
+@pytest.mark.parametrize("family,flags", [c[1:] for c in CLI_F32_PATHS],
+                         ids=[c[0] for c in CLI_F32_PATHS])
+def test_video_cli_card_matches_cpu(serving, tmp_path, family, flags):
+    """The f32 paths (--fast 0), scored: max 1 level on < 1e-3 of the
+    bytes, PSNR within 0.05 dB."""
+    r = serving("cuda_video_cli_vs_cpu", family, flags, str(tmp_path))
+    print(r)
+    assert r["shape"][0] == 4 and r["launches"] == {}
+    assert r["max_diff"] <= 1 and r["frac_diff"] < 1e-3, r
+    p_card, p_cpu = r["psnr"]
+    assert abs(p_card - p_cpu) < 0.05
+
+
+@pytest.mark.parametrize("family,q8,key", [
+    ("fsrgan", -1, "fused_tail_u8:w8a8"), ("srgan", 2, "fused_tail64_u8:qh8")])
+def test_video_cli_kernel_engine_on_card(serving, tmp_path, family, q8,
+                                         key):
+    """The kernel engine through the CLI (K1 or K2 once a frame) writes the
+    bytes of the same engine called directly on the card.  (Card against
+    CPU, the bf16 body on cuDNN and the int8 scales calibrated on it put
+    the seeded generators' frames up to 5 levels apart, > 0 on 11%.)"""
+    r = serving("cuda_video_cli_vs_engine", family, q8, str(tmp_path))
+    print(r)
+    assert r["shape"] == (4, 400, 600, 3)
+    assert r["launches"] == {key: 4}
+    assert r["max_diff"] == 0, r

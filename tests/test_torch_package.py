@@ -1,5 +1,9 @@
-"""The PyTorch port stands alone: no module of denoise_gan_tpu_torch imports
-jax, flax or the JAX package, and the package runs with jax unimportable."""
+"""The PyTorch port stands alone: no module of denoise_gan_tpu_torch, nor
+chip_smoke.py, the root launchers of the port's CLIs (*_torch.py) or the
+tests' torch-side helpers, imports jax, flax or the JAX package; and the
+package runs with jax, flax, msgpack and cv2 unimportable, as on the
+machine with the card: a .dgt export written and read back, and the video
+CLI on an RGBA AVI through the kernel engine."""
 
 import ast
 import os
@@ -29,9 +33,10 @@ def _imports(path: Path):
 def _sources():
     """The package, chip_smoke.py, and the test helpers that run the port's
     side of the tests (they must import on a machine without jax)."""
-    return sorted(PKG.rglob("*.py")) + [
+    return sorted(PKG.rglob("*.py")) + sorted(REPO.glob("*_torch.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_process.py",
-        REPO / "tests" / "torch_side.py"]
+        REPO / "tests" / "torch_side.py",
+        REPO / "tests" / "torch_side_serving.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -48,19 +53,36 @@ def test_package_runs_without_jax(tmp_path):
     where ``import jax`` fails."""
     code = """
 import sys
-for name in ("jax", "flax", "jaxlib", "denoise_gan_tpu"):
+for name in ("jax", "flax", "jaxlib", "denoise_gan_tpu", "msgpack", "cv2",
+             "h5py"):
     sys.modules[name] = None
 import importlib, pkgutil
+import numpy as np
 import torch
 import denoise_gan_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+for name in ("infer_torch", "infer_video_torch", "unit_test_torch"):
+    importlib.import_module(name)
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.infer.kernel_engine import build_fsrgan_kernel_engine
 model = build_generator("fsrgan", device="cpu",
                         generator=torch.Generator().manual_seed(0))
 out = build_fsrgan_kernel_engine(model, 20, 30, brc=24)(torch.rand(20, 30, 3))
 assert out.shape == (80, 120, 3) and out.dtype == torch.uint8
+from denoise_gan_tpu_torch.io import avi
+from denoise_gan_tpu_torch.io.checkpoint import export_generator
+from denoise_gan_tpu_torch.infer import video
+export_generator("m.dgt", "fsrgan", 4, model)
+vw = avi.VideoWriter("in.avi", 25, (30, 20))
+for i in range(3):
+    vw.write(np.full((20, 30, 3), 40 * i, np.uint8))
+vw.release()
+for score in ("0", "1"):
+    r = video.main(["--input_video", "in.avi", "--output_video", "out.avi",
+                    "--model", "m.dgt", "--device", "cpu", "--score", score,
+                    "--kernel_tail", "1"])
+    assert r["frames"] == avi.VideoReader("out.avi").frame_count == 3
 assert not any(m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None
                for m in sys.modules)
 print("ok")

@@ -49,22 +49,22 @@ def _exit_with_parent(parent: int) -> None:
                      daemon=True).start()
 
 
-def _run(name: str, args: tuple, kwargs: dict):
-    """In the child: torch_side.<name>(*args, **kwargs)."""
-    return getattr(importlib.import_module("torch_side"), name)(*args,
-                                                                **kwargs)
+def _run(module: str, name: str, args: tuple, kwargs: dict):
+    """In the child: <module>.<name>(*args, **kwargs)."""
+    return getattr(importlib.import_module(module), name)(*args, **kwargs)
 
 
 @contextlib.contextmanager
-def torch_process():
-    """Yield ``call(name, *args, **kwargs)``, which runs
-    ``torch_side.<name>`` in one spawned child process and returns its
-    result."""
+def torch_process(module: str = "torch_side"):
+    """Yield ``call(name, *args, **kwargs)``, which runs ``<module>.<name>``
+    (a module of tests/, by default torch_side) in one spawned child process
+    and returns its result."""
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=ctx, initializer=_exit_with_parent,
             initargs=(os.getpid(),)) as pool:
         def call(name: str, *args, **kwargs):
-            return pool.submit(_run, name, args, kwargs).result(TIMEOUT_S)
+            return pool.submit(_run, module, name, args,
+                               kwargs).result(TIMEOUT_S)
 
         yield call
