@@ -232,6 +232,30 @@ Phases, each printed on its own line:
    levels to f32, PSNR, SSIM); and the default FSRGAN run, warm, on a
    24-frame clip without an output and writing one (the run fails where the
    disk has no room for it). The files are deleted.
+4g. Training (train/, plain PyTorch: no hand kernel may launch): 32
+   seeded uint8 .npy images at DIV2K's size (1356x2040: colour waves
+   plus noise, made on the card) written under _train_smoke/ (deleted
+   after); each trainer run through its entry point,
+   train_<family>_torch.py's main, from that directory, at full width
+   (FSRGAN gf 32, SRGAN 16 blocks, the full discriminators and VGG19),
+   crop 256 (the default), batch 16, 3 epochs of 2 steps, each family at
+   its own fp16 default (SRGAN bf16), on the card.  Asserted: every
+   launch count zero across the run; 6 steps and 3 epoch lines; the
+   losses finite (the loop's check at each summary, and one more step
+   after); the exports read back into fresh nets equal the final state;
+   one FSRGAN step (f32, TF32 off, degrade=False, crop 64, batch 4) on
+   the card against the same step on the CPU from the same weights and
+   pair, within the CPU tests' tolerances (losses 1e-5 relative, BN
+   statistics 1e-5, the gradients recovered from Adam per tensor cosine
+   >= 0.9999, norms within 1e-3) and max |d| <= 5e-2 max |g| per tensor
+   (the CPU tests' 1e-3 widened by the readings: STEP_GRAD_CARD), the
+   readings printed.  Printed: per family the run's wall time,
+   StepTimer's steps/s and images/s (after the first step; the loop's
+   data loading, summaries and checkpoints included), the step alone by
+   CUDA events over BARE_STEPS steps, peak memory
+   (torch.cuda.max_memory_allocated over the run); FSRGAN's step split by
+   CUDA events at the step's marks (train/step.py::PARTS) and the
+   device's idle share over 3 steps from a torch.profiler trace.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -296,8 +320,13 @@ is the kernels' JSON record, the last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import importlib
+import io
 import json
+import math
+import os
 import shutil
 import time
 from pathlib import Path
@@ -314,9 +343,12 @@ from denoise_gan_tpu_torch.infer import video as video_cli
 from denoise_gan_tpu_torch.infer.fast import build_fast_coarse, \
     build_fast_forward
 from denoise_gan_tpu_torch.io import avi
-from denoise_gan_tpu_torch.io.checkpoint import export_generator
+from denoise_gan_tpu_torch.data.degrade import degrade_pair
+from denoise_gan_tpu_torch.io.checkpoint import export_generator, \
+    load_export_into
 from denoise_gan_tpu_torch.io.params import from_jax_params
-from denoise_gan_tpu_torch.models import build_generator
+from denoise_gan_tpu_torch.models import build_generator, build_models
+from denoise_gan_tpu_torch.models.vgg import init_vgg_params
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops import _build
@@ -329,7 +361,10 @@ from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
                                           mbpipe, overlap, relayout,
                                           u8_store)
+from denoise_gan_tpu_torch.train.state import create_train_state
+from denoise_gan_tpu_torch.train.step import PARTS, build_train_step
 from denoise_gan_tpu_torch.utils import card
+from denoise_gan_tpu_torch.utils.config import make_config, parse_args
 from denoise_gan_tpu_torch.utils.device import no_tf32, require_cuda
 
 HEIGHT, WIDTH = 1080, 1920
@@ -386,6 +421,22 @@ GENERIC_FRAMES = 6
 CLI_FRAMES = 6
 STEADY_REPEATS = 4                # the steady run's clip: the frames x 4
 CLI_DIR = Path(__file__).resolve().parent / "_cli_smoke"
+# phase 4g: the trainers' images (DIV2K's size) and files (deleted after)
+TRAIN_DIR = Path(__file__).resolve().parent / "_train_smoke"
+TRAIN_IMAGES = 32
+DIV2K_HW = (1356, 2040)
+TRAIN_BATCH = 16
+TRAIN_EPOCHS = 3                  # 2 steps an epoch: 6 steps, 5 timed
+BARE_STEPS = 4                    # the step alone, after the run
+CHECK_CROP, CHECK_BATCH = 64, 4   # the card-vs-CPU FSRGAN step
+STEP_RTOL, STEP_COS, STEP_NORM, STEP_NOISE = 1e-5, 0.9999, 1e-3, 1e-5
+# The CPU tests' max |d| <= 1e-3 max |g| per tensor, widened for the card:
+# a leaky-ReLU kink that the two devices' roundings put on either side
+# moves a gradient summed over N positions of random sign by ~1/sqrt(N) of
+# its largest value (tests/test_torch_cuda.py::
+# test_disc_gradient_same_inputs_card_matches_cpu isolates it); measured
+# up to 2.2e-2 at crop 64 (PERF.md section 2)
+STEP_GRAD_CARD = 5e-2
 # phase 4e check (b) in bf16: PERF.md section 2's bf16 envelope of the port
 # against its references (SRGAN, the K3 body)
 BF16_ENVELOPE = 5e-2
@@ -2393,7 +2444,7 @@ def io_times(frames: list[np.ndarray], out4k: torch.Tensor) -> None:
     def bicubic():
         return resize_bicubic(x01[None], h4, w4).clamp(0.0, 1.0)
 
-    image_ops._bicubic_matrix.cache_clear()
+    image_ops._resize_matrix.cache_clear()
     _, cold_ms = card_ms(bicubic, 1)
     ref, bicubic_ms = card_ms(bicubic)
     out01, levels_ms = card_ms(lambda: levels[out4k.long()][None])
@@ -2607,6 +2658,296 @@ def cli_image(model, export: str, frames, dev) -> None:
           f"{(4 * HEIGHT, 4 * WIDTH, 3)} uint8, equal to the forward called "
           f"directly ({seconds:.1f} s with the set-up)")
 
+# ---------------------------------------------------------------------------
+# phase 4g: training
+
+
+def train_images(directory: Path, dev) -> None:
+    """TRAIN_IMAGES seeded uint8 RGB .npy images at DIV2K's size under
+    directory/data/div2k, made on `dev` from a generator seeded SEED + 3:
+    per channel a colour wave of random frequency and phase plus sensor
+    noise."""
+    d = directory / "data" / "div2k"
+    d.mkdir(parents=True)
+    h, w = DIV2K_HW
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :, None]
+    for i in range(TRAIN_IMAGES):
+        a, b, p = (torch.rand(3, 3, generator=g, device=dev)
+                   * torch.tensor([[0.04], [0.04], [6.28]], device=dev)
+                   + torch.tensor([[0.01], [0.01], [0.0]], device=dev))
+        img = 0.5 + 0.4 * torch.sin(a * yy + b * xx + p)
+        img += 0.03 * torch.randn(h, w, 3, generator=g, device=dev)
+        np.save(d / f"{i:04d}.npy", (img.clamp(0, 1) * 255 + 0.5).to(
+            torch.uint8).cpu().numpy())
+
+
+def hr_batch(directory: Path, rng, n: int, crop: int) -> torch.Tensor:
+    """n random crops (N, crop, crop, 3) f32 [0, 1] on the host from the
+    first n images."""
+    paths = sorted((directory / "data" / "div2k").glob("*.npy"))[:n]
+    out = []
+    for p in paths:
+        img = np.load(p)
+        y = rng.integers(0, img.shape[0] - crop + 1)
+        x = rng.integers(0, img.shape[1] - crop + 1)
+        out.append(img[y:y + crop, x:x + crop].astype(np.float32) / 255.0)
+    return torch.from_numpy(np.stack(out))
+
+
+def train_argv(family: str) -> list[str]:
+    """The flags of a phase-4g run: the family's defaults (crop 256, its
+    own fp16, --device cuda) but the data, batch and epochs."""
+    return ["--image_dir", "data", "--batch_size", str(TRAIN_BATCH),
+            "--epochs", str(TRAIN_EPOCHS)]
+
+
+def grads_of(state) -> dict[str, dict[str, torch.Tensor]]:
+    """Each net's gradients of its last step, recovered from Adam's first
+    moments (after one step exp_avg = (1 - b1) g), on the host."""
+    out = {}
+    for name, net in (("gen", state.gen), ("disc", state.disc)):
+        b1 = net.opt.param_groups[0]["betas"][0]
+        out[name] = {n: (net.opt.state[p]["exp_avg"] / (1 - b1)).double()
+                     .cpu()
+                     for n, p in net.model.named_parameters()}
+    return out
+
+
+def compare_grads(got: dict, want: dict
+                  ) -> tuple[float, float, float, str]:
+    """(smallest cosine, largest |norm ratio - 1|, largest max|d| /
+    max|g_want| and its tensor) over the tensors of one net above the
+    noise level (STEP_NOISE of the net's largest gradient: a bias feeding
+    a train-mode BatchNorm has none in exact arithmetic); raises where a
+    tensor at the noise level is above it on either side."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    cos_min, norm_max, rel_max, worst = 1.0, 0.0, 0.0, ""
+    for name, w in want.items():
+        g = got[name].double()
+        w = w.double()
+        scale = float(w.abs().max())
+        if scale <= STEP_NOISE * largest:
+            if float(g.abs().max()) > STEP_NOISE * largest:
+                raise AssertionError(f"{name}: gradient above the noise "
+                                     "level on one side only")
+            continue
+        cos_min = min(cos_min, float((g * w).sum() / (g.norm() * w.norm())))
+        norm_max = max(norm_max, abs(float(g.norm() / w.norm()) - 1))
+        rel = float((g - w).abs().max()) / scale
+        if rel > rel_max:
+            rel_max, worst = rel, name
+    return cos_min, norm_max, rel_max, worst
+
+
+def card_vs_cpu_step(directory: Path, dev) -> None:
+    """One FSRGAN step (f32, TF32 off, degrade=False, crop CHECK_CROP,
+    batch CHECK_BATCH) on the card against the same step on the CPU from
+    the same weights and pair: every loss within STEP_RTOL relative, the
+    new BatchNorm statistics within STEP_RTOL of each tensor's largest
+    magnitude, the gradients recovered from Adam per tensor cosine >=
+    STEP_COS, norms within STEP_NORM and max |d| <= STEP_GRAD_CARD max |g|
+    (the CPU tests' 1e-3 widened: see STEP_GRAD_CARD); readings printed."""
+    cfg = make_config("fsrgan", crop_size=CHECK_CROP,
+                      batch_size=CHECK_BATCH, device="cpu")
+    bundle = build_models("fsrgan")
+    hr = hr_batch(directory, np.random.default_rng(SEED + 4), CHECK_BATCH,
+                  CHECK_CROP)
+    pair = degrade_pair(hr, 4, 50)
+    step = build_train_step(bundle, cfg, degrade=False)
+    metrics, grads, stats = {}, {}, {}
+    for d in (dev, "cpu"):
+        key = "card" if d == dev else "cpu"
+        state = create_train_state(bundle, cfg, d, seed=SEED)
+        metrics[key] = {k: float(v) for k, v in step(
+            state, init_vgg_params(device=d),
+            tuple(p.to(d) for p in pair)).items()}
+        grads[key] = grads_of(state)
+        stats[key] = {f"{net}.{n}": b.double().cpu() for net in ("gen",
+                      "disc") for n, b in getattr(state, net).model
+                      .named_buffers()}
+    worst_loss = max(abs(metrics["card"][k] - v) / max(abs(v), 1e-30)
+                     for k, v in metrics["cpu"].items())
+    stat_rel = max(float((b - stats["cpu"][n]).abs().max())
+                   / max(float(stats["cpu"][n].abs().max()), 1e-30)
+                   for n, b in stats["card"].items())
+    print(f"  FSRGAN step, card vs CPU (crop {CHECK_CROP}, batch "
+          f"{CHECK_BATCH}, f32, TF32 off): losses {worst_loss:.2e} "
+          f"relative, BN statistics {stat_rel:.2e} (bounds {STEP_RTOL})")
+    ok = worst_loss <= STEP_RTOL and stat_rel <= STEP_RTOL
+    for net in ("gen", "disc"):
+        cos, norm, rel, name = compare_grads(grads["card"][net],
+                                             grads["cpu"][net])
+        print(f"    {net} gradients: cosine >= {cos:.7f} (bound "
+              f"{STEP_COS}), norms within {norm:.2e} (bound {STEP_NORM}), "
+              f"max|d|/max|g| {rel:.2e} ({name}; bound {STEP_GRAD_CARD})")
+        ok &= cos >= STEP_COS and norm <= STEP_NORM and \
+            rel <= STEP_GRAD_CARD
+    if not ok:
+        raise AssertionError("the card's FSRGAN step is outside the "
+                             "tolerances")
+
+
+def step_split(step, state, vgg, batch, gen, n: int
+               ) -> tuple[dict[str, float], float]:
+    """ms per part of the step (train/step.py::PARTS) by CUDA events at
+    the step's marks, and ms per step, means over n steps."""
+    parts = dict.fromkeys(PARTS, 0.0)
+    total = 0.0
+    for _ in range(n):
+        events = [torch.cuda.Event(enable_timing=True)]
+        names = []
+
+        def mark(part):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            names.append(part)
+
+        torch.cuda.synchronize()
+        events[0].record()
+        step(state, vgg, batch, gen, mark=mark)
+        torch.cuda.synchronize()
+        for a, b, name in zip(events, events[1:], names):
+            parts[name] += a.elapsed_time(b) / n
+        total += events[0].elapsed_time(events[-1]) / n
+    return parts, total
+
+
+def idle_share(step, state, vgg, batch, gen, n: int) -> str:
+    """The device's idle share over n steps from a torch.profiler trace:
+    1 - (union of the CUDA kernels' intervals) / (the trace's span, from
+    its first event to its last)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, vgg, batch, gen)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA)
+    if not kernels:
+        return "not measured (no device events in the trace)"
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    busy, end = 0.0, -1.0
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (f"{1 - busy / span:.3f} ({len(kernels)} kernels, busy "
+            f"{busy / 1e3:.1f} of {span / 1e3:.1f} ms)")
+
+
+def exports_equal(family: str, state, cfg, dev) -> None:
+    """The run's exports read back into fresh nets equal its final
+    state."""
+    bundle = build_models(family, scale=cfg.scale, fp16=bool(cfg.fp16))
+    for suffix, live, fresh in (
+            ("", state.gen.model, bundle.build_generator_net(dev)),
+            ("_disc", state.disc.model, bundle.build_discriminator(dev))):
+        load_export_into(f"models/{cfg.model_name}{suffix}.dgt", fresh)
+        theirs = fresh.state_dict()
+        bad = [n for n, t in live.state_dict().items()
+               if not torch.equal(t, theirs[n])]
+        if bad:
+            raise AssertionError(f"{family}{suffix} export differs from "
+                                 f"the final state: {bad[:4]}")
+
+
+def training_phase(smi: str) -> None:
+    """Phase 4g (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    print(f"phase 4g training [{smi}]:")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir()
+    cwd = os.getcwd()
+    try:
+        train_images(TRAIN_DIR, dev)
+        print(f"  {TRAIN_IMAGES} seeded uint8 images {DIV2K_HW[0]}x"
+              f"{DIV2K_HW[1]} written in {time.perf_counter() - t0:.1f} s")
+        os.chdir(TRAIN_DIR)
+        batch_rng = np.random.default_rng(SEED + 5)
+        for family in ("fsrgan", "srgan", "autoencoder", "pix2pix"):
+            trainer = importlib.import_module(f"train_{family}_torch")
+            argv = train_argv(family)
+            cfg = parse_args(family, argv)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                state = trainer.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            run_steps = state.step
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if fired():
+                raise AssertionError(f"training {family} launched hand "
+                                     f"kernels: {fired()}")
+            epochs = [l for l in log.getvalue().splitlines()
+                      if "Starting epoch" in l]
+            if len(epochs) != TRAIN_EPOCHS or run_steps != \
+                    TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH):
+                raise AssertionError(f"{family}: {state.step} steps, "
+                                     f"epochs {epochs}")
+            exports_equal(family, state, cfg, dev)
+            bundle = build_models(family, scale=cfg.scale,
+                                  fp16=bool(cfg.fp16))
+            step = build_train_step(bundle, cfg)
+            vgg = init_vgg_params(device=dev)
+            hr = hr_batch(TRAIN_DIR, batch_rng, TRAIN_BATCH,
+                          cfg.crop_size).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            metrics = step(state, vgg, hr, gen)
+            torch.cuda.synchronize()
+            bad = {k: float(v) for k, v in metrics.items()
+                   if not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f"{family}: non-finite losses {bad}")
+            parts, step_ms = step_split(step, state, vgg, hr, gen,
+                                        BARE_STEPS)
+            timer = state.timer
+            print(f"  {family} ({'bf16' if cfg.fp16 else 'f32'}, crop "
+                  f"{cfg.crop_size}, batch {TRAIN_BATCH}): main() "
+                  f"{run_s:.1f} s for {run_steps} steps "
+                  f"(with set-up, {TRAIN_EPOCHS} epochs, checkpoints, "
+                  f"exports); StepTimer {timer.steps_per_sec:.3f} steps/s "
+                  f"= {timer.images_per_sec:.2f} images/s over "
+                  f"{timer.steps} steps (data and summaries every "
+                  f"{min(cfg.save_iter, TRAIN_IMAGES // TRAIN_BATCH)} "
+                  f"steps included); the step alone {step_ms:.2f} ms = "
+                  f"{1e3 / step_ms:.3f} steps/s = "
+                  f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s (CUDA events,"
+                  f" {BARE_STEPS} steps); peak memory {peak:.2f} GB; hand-"
+                  "kernel launches 0; losses finite; exports read back "
+                  f"equal; last losses gen {float(metrics['gen_loss']):.4g},"
+                  f" disc {float(metrics['disc_loss']):.4g}")
+            if family == "fsrgan":
+                print("  fsrgan step split, ms (CUDA events at the step's "
+                      "marks, mean of "
+                      f"{BARE_STEPS}): " + ", ".join(
+                          f"{k} {v:.2f}" for k, v in parts.items()))
+                print("  fsrgan device idle share over 3 steps "
+                      "(torch.profiler): "
+                      + idle_share(step, state, vgg, hr, gen, 3))
+            del state, step, vgg, hr
+            torch.cuda.empty_cache()
+        os.chdir(cwd)
+        card_vs_cpu_step(TRAIN_DIR, dev)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"  phase 4g took {time.perf_counter() - t0:.1f} s")
+
+
+
+T0 = time.perf_counter()
+
 
 def main() -> None:
     # ---- phase 1: device
@@ -2689,6 +3030,8 @@ def main() -> None:
     generic_engines(models, frames, smi)
     # ---- phase 4f: the CLIs on .dgt exports and an RGBA AVI
     cli_phase(models, smi)
+    # ---- phase 4g: the four trainers on the card
+    training_phase(smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")
@@ -2729,6 +3072,7 @@ def main() -> None:
         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3],
         "bound_by": k3[4], "library_ms": None})
     record = {"kernels": kernels + probes}
+    print(f"chip_smoke.py took {time.perf_counter() - T0:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

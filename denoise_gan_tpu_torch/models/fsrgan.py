@@ -1,6 +1,7 @@
 """FastSRGAN generator in PyTorch (denoise_gan_tpu/models/fsrgan.py:22-129).
 
-Eval mode only.  The public modules take and return NHWC tensors, like the
+Train mode (``.train()``) normalises by the batch (models/layers.py::
+BatchNorm).  The public modules take and return NHWC tensors, like the
 Flax modules; inside they run NCHW views of channels_last storage, which
 cuDNN convolves without a relayout.  Submodule names mirror the Flax scopes
 (``Conv_0``, ``InvertedResidual_3``, ``up1`` ...).
@@ -16,6 +17,7 @@ from denoise_gan_tpu_torch.models.layers import (
 )
 
 EXPANSION = 6     # inverted-residual expand factor (width multiplier 1)
+BN_MOMENTUM = 0.999   # the inverted residuals' BatchNorm momentum
 
 
 def _make_divisible(v, divisor, min_value=None):
@@ -29,8 +31,8 @@ def _make_divisible(v, divisor, min_value=None):
 
 
 class InvertedResidual(nn.Module):
-    """MobileNetV2 inverted residual, stride 1, BN eps 1e-3
-    (fsrgan.py:32-71).  Block 0 has no expand conv."""
+    """MobileNetV2 inverted residual, stride 1, BN eps 1e-3 and momentum
+    0.999 (fsrgan.py:32-71).  Block 0 has no expand conv."""
 
     def __init__(self, in_channels: int, filters: int, block_id: int,
                  dtype: torch.dtype | None = None,
@@ -44,14 +46,15 @@ class InvertedResidual(nn.Module):
             mid = EXPANSION * in_channels
             self.expand = Conv(in_channels, mid, 1, dtype=dtype,
                                generator=generator)
-            self.BatchNorm_0 = BatchNorm(mid)
+            self.BatchNorm_0 = BatchNorm(mid, BN_MOMENTUM)
         bn = int(self.has_expand)
         self.depthwise = Conv(mid, mid, 3, groups=mid, dtype=dtype,
                               generator=generator)
-        setattr(self, f"BatchNorm_{bn}", BatchNorm(mid))
+        setattr(self, f"BatchNorm_{bn}", BatchNorm(mid, BN_MOMENTUM))
         self.project = Conv(mid, out_channels, 1, dtype=dtype,
                             generator=generator)
-        setattr(self, f"BatchNorm_{bn + 1}", BatchNorm(out_channels))
+        setattr(self, f"BatchNorm_{bn + 1}",
+                BatchNorm(out_channels, BN_MOMENTUM))
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = inputs

@@ -11,6 +11,7 @@ compute dtype: parameters are cast to it at each call, as Flax's
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -111,15 +112,25 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Keras-convention BatchNormalization, eval mode (layers.py:61-103):
-    the running statistics fold to ``mul``/``add`` in f32, then apply in the
-    compute dtype.  Train mode is not ported yet and raises."""
+    """Keras-convention BatchNormalization (layers.py:61-103).
 
-    def __init__(self, channels: int, epsilon: float = 1e-3,
-                 gamma_init: Init | None = None,
+    Eval mode: the running statistics fold to ``mul``/``add`` in f32, then
+    apply in the compute dtype.  Train mode, written out as Flax's is: the
+    batch mean and the biased variance ``E[x^2] - mean^2`` over N, H, W in
+    f32, ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast back
+    to the input's dtype; and, unless ``update_stats`` is False (see
+    ``batch_stats_frozen``), the running statistics move by Keras momentum
+    ``m``: ``running = m * running + (1 - m) * batch``, the variance biased
+    (torch's own BatchNorm keeps ``1 - m`` and the unbiased variance).
+    A float64 input computes in float64 (a precision reference)."""
+
+    def __init__(self, channels: int, momentum: float = 0.99,
+                 epsilon: float = 1e-3, gamma_init: Init | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.momentum = momentum
         self.epsilon = epsilon
+        self.update_stats = True
         self.scale = nn.Parameter(torch.ones(channels))
         if gamma_init is not None:
             gamma_init(self.scale.data, generator)
@@ -128,31 +139,93 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
-        mul = self.scale * torch.rsqrt(self.var + self.epsilon)
-        add = self.bias - self.mean * mul
-        return x * _channel(mul, x.dtype) + _channel(add, x.dtype)
+        if not self.training:
+            mul = self.scale * torch.rsqrt(self.var + self.epsilon)
+            add = self.bias - self.mean * mul
+            return x * _channel(mul, x.dtype) + _channel(add, x.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = (0, 2, 3)
+        mean = xf.mean(dim=axes)
+        var = xf.square().mean(dim=axes) - mean.square()
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        ft = xf.dtype
+        y = ((xf - _channel(mean, ft))
+             * _channel(torch.rsqrt(var + self.epsilon), ft)
+             * _channel(self.scale, ft) + _channel(self.bias, ft))
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(model: nn.Module):
+    """Inside the block, `model`'s BatchNorm layers normalise by batch
+    statistics in train mode but leave their running statistics as they
+    are: Flax's ``apply(..., mutable=["batch_stats"])`` whose update is
+    thrown away (train/step.py: D(fake) in the generator's loss, pix2pix's
+    identity pass)."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    old = [m.update_stats for m in layers]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, u in zip(layers, old):
+            m.update_stats = u
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout(rate) (pix2pix.py:48-49): in train mode
+    ``where(keep, x / (1 - rate), 0)``, each value kept with probability
+    1 - rate (at 0.5 a kept value doubles, exactly); the identity in eval
+    mode.  ``keep`` is a boolean mask of x's shape that the caller passes,
+    or a draw of ``torch.rand < 1 - rate`` from the caller's
+    torch.Generator (on x's device; None: torch's global one)."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor | torch.Generator | None = None
+                ) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        if not isinstance(keep, torch.Tensor):
+            keep = torch.rand(x.shape, generator=keep,
+                              device=x.device) < keep_prob
+        if keep.shape != x.shape:
+            raise ValueError(f"dropout mask {tuple(keep.shape)} for input "
+                             f"{tuple(x.shape)}")
+        return torch.where(keep.to(x.device), x / keep_prob,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Conv(nn.Module):
     """'SAME' convolution with Keras defaults: glorot-uniform kernel, zero
     bias (layers.py:106-117).  Any square kernel and stride; the padding is
     lax's SAME rule (``same_pads``), which pads one more after than before
-    where the total is odd.  ``groups=channels`` is the depthwise form;
-    ``use_bias=False`` has no ``bias`` parameter at all, as Flax's."""
+    where the total is odd, or none at all with ``padding="VALID"``.
+    ``groups=channels`` is the depthwise form; ``use_bias=False`` has no
+    ``bias`` parameter at all, as Flax's."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  groups: int = 1, use_bias: bool = True,
                  kernel_init: Init = glorot_uniform,
                  dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None,
-                 stride: int = 1):
+                 stride: int = 1, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding}")
         self.dtype = dtype
         self.groups = groups
         self.stride = stride
+        self.same = padding == "SAME"
         w = torch.empty(cout, cin // groups, kernel_size, kernel_size)
         kernel_init(w, generator)
         self.weight = nn.Parameter(w)
@@ -164,7 +237,8 @@ class Conv(nn.Module):
         # rounds once and changes ~60% of bf16 body outputs by an ulp.
         dt = self.dtype or x.dtype
         k, s = self.weight.shape[-1], self.stride
-        (pt, pb), (pl, pr) = (same_pads(n, k, s) for n in x.shape[-2:])
+        (pt, pb), (pl, pr) = ((same_pads(n, k, s) if self.same else (0, 0))
+                              for n in x.shape[-2:])
         x = x.to(dt)
         if (pt, pl) != (pb, pr):
             x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0

@@ -10,9 +10,11 @@ channels and an f32 tanh (single-threaded on the CPU, ops/tail.py::
 _tanh).  Kernels start N(0, 0.02).  H and W must be
 multiples of 256, as in the reference.
 
-Eval mode only: BatchNorm applies its running statistics and dropout is
-the identity; train mode raises NotImplementedError (in BatchNorm).
-Names mirror the Flax scopes: ``Downsample_i/Conv_0``,
+In eval mode BatchNorm applies its running statistics and dropout is the
+identity; in train mode (``.train()``) BatchNorm normalises by the batch
+and the three dropout layers drop half their values, from a
+torch.Generator or from masks the caller passes (``forward``'s
+``dropout``).  Names mirror the Flax scopes: ``Downsample_i/Conv_0``,
 ``Downsample_i/BatchNorm_0``, ``Upsample_i/ConvTranspose_0``,
 ``Upsample_i/BatchNorm_0`` and the top-level ``ConvTranspose_0``.
 """
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    BatchNorm, Conv, ConvTranspose, leaky_relu, normal02,
+    BatchNorm, Conv, ConvTranspose, Dropout, leaky_relu, normal02,
 )
 from denoise_gan_tpu_torch.ops.tail import _tanh
 
@@ -51,18 +53,24 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Dropout is the identity in eval mode, the only mode ported."""
+    """Transpose conv, BN, dropout 0.5 where ``apply_dropout``, ReLU.
+    ``keep``: the dropout's mask (NCHW, x's shape after the BN) or its
+    torch.Generator (Dropout)."""
 
-    def __init__(self, cin: int, filters: int,
+    def __init__(self, cin: int, filters: int, apply_dropout: bool = False,
                  dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.ConvTranspose_0 = ConvTranspose(cin, filters, use_bias=False,
                                              dtype=dtype, generator=generator)
         self.BatchNorm_0 = BatchNorm(filters)
+        self.dropout = Dropout(0.5) if apply_dropout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        x = self.BatchNorm_0(self.ConvTranspose_0(x))
+        if self.dropout is not None:
+            x = self.dropout(x, keep)
+        return torch.relu(x)
 
 
 class Pix2PixGenerator(nn.Module):
@@ -80,20 +88,29 @@ class Pix2PixGenerator(nn.Module):
                 cin, filters, bn, dtype, generator))
             cin = filters
         skips = [f for f, _ in DOWN[-2::-1]]
-        for i, ((filters, _), skip) in enumerate(zip(UP, skips)):
-            setattr(self, f"Upsample_{i}", Upsample(cin, filters, dtype,
-                                                    generator))
+        for i, ((filters, drop), skip) in enumerate(zip(UP, skips)):
+            setattr(self, f"Upsample_{i}", Upsample(cin, filters, drop,
+                                                    dtype, generator))
             cin = filters + skip
         self.ConvTranspose_0 = ConvTranspose(cin, output_channels,
                                              dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
+        """`dropout` (train mode only): a torch.Generator on x's device to
+        draw the three masks from (None: torch's global one), or the masks
+        themselves, NHWC booleans in call order, as flax.linen.Dropout
+        draws them."""
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)
         skips = []
         for i in range(len(DOWN)):
             x = getattr(self, f"Downsample_{i}")(x)
             skips.append(x)
+        masks = iter(dropout) if isinstance(dropout, (list, tuple)) else None
         for i, skip in enumerate(reversed(skips[:-1])):
-            x = torch.cat([getattr(self, f"Upsample_{i}")(x), skip], dim=1)
+            keep = dropout
+            if UP[i][1] and masks is not None:
+                keep = next(masks).permute(0, 3, 1, 2)
+            x = torch.cat([getattr(self, f"Upsample_{i}")(x, keep), skip],
+                          dim=1)
         x = self.ConvTranspose_0(x)
         return _tanh(x.float()).permute(0, 2, 3, 1)

@@ -1,7 +1,8 @@
 """SRGAN (SRResNet) generator in PyTorch (denoise_gan_tpu/models/srgan.py:
 23-93).
 
-Eval mode only.  The public modules take and return NHWC tensors, like the
+Train mode (``.train()``) normalises by the batch (models/layers.py::
+BatchNorm).  The public modules take and return NHWC tensors, like the
 Flax modules; inside they run NCHW views.  Flax names the body's layers
 flat, in call order, and so does the port: the stem is ``Conv_0``,
 ``BatchNorm_0``, ``PReLU_0``; residual block k uses ``Conv_{2k+1}``,

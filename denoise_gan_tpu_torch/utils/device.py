@@ -43,3 +43,15 @@ def no_tf32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """``no_tf32``, and on the CPU PyTorch's own convolutions in place of
+    oneDNN's (mkldnn): oneDNN's f32 convolution backward put pix2pix's
+    transposed-conv weight gradients at 256^2 up to 0.2 of a tensor's
+    largest value from the JAX package's, PyTorch's own within 6e-4
+    (``python tests/training_oracles.py``), at ~1.4-2.2x the CPU time.
+    The card's convolutions are unaffected."""
+    with no_tf32(), torch.backends.mkldnn.flags(enabled=False):
+        yield

@@ -131,8 +131,18 @@ def test_from_jax_params_layouts(port, variables):
 
 
 def test_batchnorm_train_mode_not_ported(port):
-    with pytest.raises(NotImplementedError):
-        port("batchnorm_train_forward")
+    """Train-mode BatchNorm, which the generators' eval-only port left
+    out, runs as Flax's: batch statistics, the running ones updated by
+    Keras momentum (tests/test_torch_train_layers.py holds it in full)."""
+    from denoise_gan_tpu.models.layers import BatchNorm as JBN
+    x = np.random.default_rng(5).standard_normal((2, 3, 5, 4)).astype(
+        np.float32) * 2 + 1
+    y, mut = JBN().apply(JBN().init(jax.random.key(0), x, train=False), x,
+                         train=True, mutable=["batch_stats"])
+    got, mean, var = port("batchnorm_train_forward", x)
+    np.testing.assert_allclose(got, np.asarray(y), atol=1e-5)
+    np.testing.assert_allclose(mean, mut["batch_stats"]["mean"], rtol=1e-5)
+    np.testing.assert_allclose(var, mut["batch_stats"]["var"], rtol=1e-5)
 
 
 def test_build_generator_seeded(port):

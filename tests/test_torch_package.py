@@ -3,7 +3,8 @@ chip_smoke.py, the root launchers of the port's CLIs (*_torch.py) or the
 tests' torch-side helpers, imports jax, flax or the JAX package; and the
 package runs with jax, flax, msgpack and cv2 unimportable, as on the
 machine with the card: a .dgt export written and read back, and the video
-CLI on an RGBA AVI through the kernel engine."""
+CLI on an RGBA AVI through the kernel engine; the trainers' modules and
+launchers import there too."""
 
 import ast
 import os
@@ -36,7 +37,8 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + sorted(REPO.glob("*_torch.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_process.py",
         REPO / "tests" / "torch_side.py",
-        REPO / "tests" / "torch_side_serving.py"]
+        REPO / "tests" / "torch_side_serving.py",
+        REPO / "tests" / "torch_side_training.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -62,7 +64,9 @@ import torch
 import denoise_gan_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-for name in ("infer_torch", "infer_video_torch", "unit_test_torch"):
+for name in ("infer_torch", "infer_video_torch", "unit_test_torch",
+             "train_autoencoder_torch", "train_pix2pix_torch",
+             "train_srgan_torch", "train_fsrgan_torch"):
     importlib.import_module(name)
 from denoise_gan_tpu_torch.models import build_generator
 from denoise_gan_tpu_torch.infer.kernel_engine import build_fsrgan_kernel_engine

@@ -138,8 +138,12 @@ def generator_layouts(params, stats):
             str(block.BatchNorm_2.var.dtype))
 
 
-def batchnorm_train_forward():
-    BatchNorm(4).train()(torch.zeros(1, 4, 2, 2))
+def batchnorm_train_forward(x):
+    """A train-mode BatchNorm(4) on NHWC `x`: (output, new running mean,
+    new running variance)."""
+    bn = BatchNorm(x.shape[-1]).train()
+    y = bn(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return _np(y), _np(bn.mean), _np(bn.var)
 
 
 def seeded_generators(seed, family="fsrgan"):

@@ -1,0 +1,19 @@
+#!/usr/bin/env python
+"""The autoencoder trainer of the PyTorch port: the JAX trainer's flags and
+defaults (train_autoencoder.py) plus --device (cuda, the card, by default; cpu
+on request).
+
+    python3 train_autoencoder_torch.py --image_dir <dir of class folders> [flags]
+"""
+
+from denoise_gan_tpu_torch.train import loop
+
+
+def main(argv: list[str] | None = None):
+    """Train from `argv` (None: the command line); returns the final
+    train state."""
+    return loop.main("autoencoder", argv)
+
+
+if __name__ == "__main__":
+    main()
