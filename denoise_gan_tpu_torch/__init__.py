@@ -17,5 +17,7 @@ with an uncompressed RGBA AVI that needs no cv2 (``io/avi.py``); training
 of the four families (``train/``: the joint G+D step, the trainers'
 loop, checkpoints and exports; ``models/discriminators.py``,
 ``models/vgg.py``, ``losses/``, ``ops/jpeg.py``, ``data/``) in plain
-PyTorch; and the TPU probes' counterparts (``probes/``).
+PyTorch; the data-parallel axis over torch.distributed (``parallel/``),
+the native image codec (``data/native.py``); and the TPU probes'
+counterparts (``probes/``).
 """

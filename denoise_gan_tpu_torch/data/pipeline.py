@@ -5,11 +5,9 @@ an image smaller than the crop up to (crop, crop), crops each image of a
 batch at random and yields (B, crop, crop, 3) f32 batches; the
 degradation runs on the device (data/degrade.py).
 
-The JAX package decodes by its native libjpeg/libpng codec
-(denoise_gan_tpu/data/native.py), then cv2, then PIL.  The port reads
-``.npy`` itself and otherwise uses cv2 or PIL where installed; the native
-codec is not ported, so a JPEG may decode one level apart from the JAX
-package's native decode.
+Decoding follows the JAX package's order: ``.npy`` read directly, else
+the native libjpeg/libpng codec (data/native.py, built from the
+repository's native/imgcodec.cpp), else cv2, else PIL.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from denoise_gan_tpu_torch.data import native
 from denoise_gan_tpu_torch.ops.image import resize_bicubic
 from denoise_gan_tpu_torch.utils.config import TrainConfig
 
@@ -48,15 +47,33 @@ def list_images(image_dir: str) -> list[str]:
     return paths
 
 
+def decoder() -> str:
+    """The decoder decode_image uses for an image file here: "native",
+    "cv2", "PIL" or "none"."""
+    if native.available():
+        return "native"
+    if _cv2() is not None:
+        return "cv2"
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return "none"
+    return "PIL"
+
+
 def decode_image(path: str) -> np.ndarray:
     """Decode to RGB float32 [0, 1] (HWC): ``.npy`` directly (uint8 / 255,
-    the first three channels), else by cv2, else by PIL; without either a
+    the first three channels), else by the native codec (a file it cannot
+    read goes on to the next), else by cv2, else by PIL; without any a
     RuntimeError that names ``.npy``."""
     if path.endswith(".npy"):
         img = np.load(path)
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
         return np.ascontiguousarray(img[..., :3].astype(np.float32))
+    img = native.decode(path)
+    if img is not None:
+        return img.astype(np.float32) / 255.0
     cv2 = _cv2()
     if cv2 is not None:
         bgr = cv2.imread(path, cv2.IMREAD_COLOR)
@@ -66,8 +83,9 @@ def decode_image(path: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:
-        raise RuntimeError(f"cannot decode {path}: no image decoder (cv2 or "
-                           "PIL) is installed; give the image as .npy "
+        raise RuntimeError(f"cannot decode {path}: no image decoder (the "
+                           "native codec, cv2 or PIL) is available; give "
+                           "the image as .npy "
                            "(HWC, uint8 or float in [0, 1])") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.float32) / 255.0

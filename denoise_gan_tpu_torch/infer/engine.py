@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from denoise_gan_tpu_torch.infer.tile import _feather
 from denoise_gan_tpu_torch.ops.image import depth_to_space
+from denoise_gan_tpu_torch.parallel.mesh import Mesh, gather_rows, row_range
 from denoise_gan_tpu_torch.utils.device import no_tf32, resolve_device
 
 
@@ -117,7 +118,8 @@ def build_frame_engine(forward_coarse: Callable[[torch.Tensor],
                        out_uint8: bool = False,
                        acc_dtype: torch.dtype = torch.float32,
                        stitch: str = "feather", bgr: bool = False,
-                       device: torch.device | str = "cuda"):
+                       device: torch.device | str = "cuda",
+                       mesh: Mesh | None = None):
     """fn(frame (H, W, 3) float in [0, 1] on `device`) -> the (H*scale,
     W*scale, 3) frame on it: uint8 with `out_uint8`, else `acc_dtype` in
     [0, 1].  The card unless the caller asks for the CPU (without a GPU a
@@ -136,9 +138,14 @@ def build_frame_engine(forward_coarse: Callable[[torch.Tensor],
     (ValueError otherwise).  ``frames_per_call`` > 1 returns fn over
     (F, H, W, 3) batches, run frame by frame inside the one call.
 
-    Not ported: ``mesh`` (the JAX engine shards the tile batch over a
-    device mesh; multi-GPU comes with ROADMAP A7) and ``flat_channels``
-    (a TPU lane layout of the u8 output; the port emits HWC)."""
+    ``mesh`` (parallel/mesh.py, the JAX engine's ``mesh``): the tile
+    batch split over the ranks, each running `forward_coarse` on its
+    share (``row_range``) on its own device (``device`` must be the
+    rank's); the tiles gathered on every rank (``gather_rows``, exact),
+    which stitches and returns the whole frame, as the JAX output is
+    replicated.  The whole-frame mode is not split.  Not ported:
+    ``flat_channels`` (a TPU lane layout of the u8 output; the port emits
+    HWC)."""
     if bgr and scale != 1:
         raise ValueError("bgr=True supports scale==1 engines only (the "
                          "scale>1 phase-channel layout needs the kernel "
@@ -176,13 +183,23 @@ def build_frame_engine(forward_coarse: Callable[[torch.Tensor],
         inv_norm = (1.0 / norm.clamp(min=1e-8)).to(acc_dtype)
     rows = (torch.arange(pad_h, device=dev) - m0).clamp(0, height - 1)
     cols = (torch.arange(pad_w, device=dev) - m0).clamp(0, width - 1)
+    split = mesh is not None and mesh.size > 1 and not whole
+    if split and ny * nx < mesh.size:
+        raise ValueError(f"{ny * nx} tiles do not split over {mesh.size} "
+                         "ranks")
 
     def one_frame(frame01: torch.Tensor) -> torch.Tensor:
         x = (frame01 * 2.0 - 1.0).index_select(0, rows).index_select(1, cols)
         if whole:
             acc = forward_coarse(x[None])[0]             # (Hp, Wp, cc)
         else:
-            out = forward_coarse(extract_grid(x, ny, nx, tile, stride))
+            tiles = extract_grid(x, ny, nx, tile, stride)
+            if split:
+                lo, hi = row_range(ny * nx, mesh)
+                out = gather_rows(forward_coarse(tiles[lo:hi]), ny * nx,
+                                  mesh)
+            else:
+                out = forward_coarse(tiles)
             if crop:
                 acc = crop_stitch(out.to(acc_dtype), ny, nx, tile, stride)
             else:

@@ -97,7 +97,8 @@ def build_kernel_engine(body: torch.nn.Module, tail: TailWeights,
                         height: int, width: int, brc: int = 45,
                         bgr: bool = False,
                         tail_fn: Callable | None = None,
-                        u8_input: bool = False, out_uint8: bool = True):
+                        u8_input: bool = False, out_uint8: bool = True,
+                        plan: tuple[int, int, int] | None = None):
     """body: NHWC (N, TR, T, 3) [-1, 1] -> (N, TR, T, C) bf16.  Returns
     fn(frame (H, W, 3) on the body's device) -> the (4H, 4W, 3) frame:
     uint8, RGB or (bgr) BGR, when out_uint8, through the tail's u8
@@ -106,8 +107,13 @@ def build_kernel_engine(body: torch.nn.Module, tail: TailWeights,
     uint8.  qh8 tail weights quantise the body output with
     ``quantize_h``.  `tail_fn` is the tail kernel's
     wrapper for that epilogue (by default ``TAILS[tail.cin]``) or its
-    twin."""
-    ny, nx, cr = plan_grid(height, width, brc)
+    twin.  `plan` (ny, nx, core_rows) overrides ``plan_grid``'s grid, as
+    the JAX engine's (tools/exp_grid_shapes.py); it must cover the frame
+    (ValueError otherwise)."""
+    ny, nx, cr = plan or plan_grid(height, width, brc)
+    if ny * cr < height or nx * CORE < width:
+        raise ValueError(f"plan {(ny, nx, cr)} does not cover a "
+                         f"{height}x{width} frame")
     if bgr and not out_uint8:
         raise ValueError("bgr=True needs the u8 kernel epilogue "
                          "(out_uint8=True)")
@@ -138,7 +144,8 @@ def build_fsrgan_kernel_engine(model: FSRGANGenerator, height: int,
                                q8_calib_frame: torch.Tensor | None = None,
                                bgr: bool = False, u8_input: bool = False,
                                bgr_input: bool = False, qh8: bool = False,
-                               out_uint8: bool = True):
+                               out_uint8: bool = True,
+                               plan: tuple[int, int, int] | None = None):
     """Wire the FSRGAN body (bf16, whatever the model's compute dtype, as
     in the JAX engine) to the fused tail, on the model's device.
 
@@ -149,11 +156,14 @@ def build_fsrgan_kernel_engine(model: FSRGANGenerator, height: int,
     brc=None picks 27 for the int8 modes and 45 for bf16, as the JAX engine
     does; it only sets core_rows here.  bgr writes BGR bytes; u8_input and
     bgr_input set the input, out_uint8 the output (see the module
-    docstring)."""
+    docstring).  `plan` overrides the engine's grid
+    (:func:`build_kernel_engine`); the calibration tiles stay
+    ``plan_grid``'s, as the JAX engine's (kernel_engine.py:235)."""
     body, tail, brc = prepare_fsrgan_engine(model, height, width, brc,
                                             q8_calib_frame, bgr_input, qh8)
     return build_kernel_engine(body, tail, height, width, brc=brc, bgr=bgr,
-                               u8_input=u8_input, out_uint8=out_uint8)
+                               u8_input=u8_input, out_uint8=out_uint8,
+                               plan=plan)
 
 
 def prepare_fsrgan_engine(model: FSRGANGenerator, height: int, width: int,
@@ -195,7 +205,8 @@ def build_srgan_kernel_engine(model: SRGANGenerator, height: int, width: int,
                               q8_calib_frame: torch.Tensor | None = None,
                               bgr: bool = False, u8_input: bool = False,
                               bgr_input: bool = False, qh8: bool = False,
-                              out_uint8: bool = True):
+                              out_uint8: bool = True,
+                              plan: tuple[int, int, int] | None = None):
     """SRGAN 4x: the 64-filter residual body (bf16) wired to the CIN=64
     fused tail (csrc/tail_srgan.cu), on the model's device.  Options as
     :func:`build_fsrgan_kernel_engine`; brc=None picks 27 for the int8
@@ -204,7 +215,8 @@ def build_srgan_kernel_engine(model: SRGANGenerator, height: int, width: int,
     body, tail, brc = prepare_srgan_engine(model, height, width, brc,
                                            q8_calib_frame, bgr_input, qh8)
     return build_kernel_engine(body, tail, height, width, brc=brc, bgr=bgr,
-                               u8_input=u8_input, out_uint8=out_uint8)
+                               u8_input=u8_input, out_uint8=out_uint8,
+                               plan=plan)
 
 
 def prepare_srgan_engine(model: SRGANGenerator, height: int, width: int,

@@ -1,12 +1,14 @@
 """The losses in PyTorch (denoise_gan_tpu/losses/gan.py:15-77): the
 adversarial BCE from logits and from probabilities, L1, L2, total
-variation and the VGG content loss, all reduced in f32.
+variation and the VGG content loss, all reduced in f32 (float64 inputs
+in float64, a precision reference).
 """
 
 from __future__ import annotations
 
 import torch
 
+from denoise_gan_tpu_torch.models.layers import at_least_f32
 from denoise_gan_tpu_torch.models.vgg import content_features
 from denoise_gan_tpu_torch.ops.image import total_variation
 
@@ -16,7 +18,7 @@ KERAS_EPS = 1e-7     # Keras BinaryCrossentropy's probability clip
 def bce_logits(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Mean BCE from logits, the stable form max(l, 0) - l z +
     log(1 + exp(-|l|))."""
-    logits, labels = logits.float(), labels.float()
+    logits, labels = at_least_f32(logits), at_least_f32(labels)
     per = (torch.clamp(logits, min=0.0) - logits * labels
            + torch.log1p(torch.exp(-logits.abs())))
     return per.mean()
@@ -24,8 +26,8 @@ def bce_logits(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 def bce_probs(labels: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     """Mean BCE of probabilities clipped to [eps, 1 - eps], as Keras."""
-    p = torch.clamp(probs.float(), KERAS_EPS, 1.0 - KERAS_EPS)
-    labels = labels.float()
+    p = torch.clamp(at_least_f32(probs), KERAS_EPS, 1.0 - KERAS_EPS)
+    labels = at_least_f32(labels)
     return (-(labels * torch.log(p)
               + (1.0 - labels) * torch.log(1.0 - p))).mean()
 
@@ -48,16 +50,17 @@ def discriminator_loss(disc_real: torch.Tensor, disc_fake: torch.Tensor,
 
 
 def l1_loss(target: torch.Tensor, output: torch.Tensor) -> torch.Tensor:
-    return (target.float() - output.float()).abs().mean()
+    return (at_least_f32(target) - at_least_f32(output)).abs().mean()
 
 
 def l2_loss(target: torch.Tensor, output: torch.Tensor) -> torch.Tensor:
-    return (target.float() - output.float()).square().mean()
+    return (at_least_f32(target) - at_least_f32(output)).square().mean()
 
 
 def tv_loss(target: torch.Tensor, output: torch.Tensor) -> torch.Tensor:
     """The batch mean of tf.image.total_variation(target - output)."""
-    return total_variation(target.float() - output.float()).mean()
+    return total_variation(at_least_f32(target)
+                           - at_least_f32(output)).mean()
 
 
 def content_loss(vgg, target: torch.Tensor, output: torch.Tensor

@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    conv3x3, he_normal, lecun_normal, max_pool_same, upsample_nearest,
+    at_least_f32, conv3x3, he_normal, lecun_normal, max_pool_same,
+    upsample_nearest,
 )
 from denoise_gan_tpu_torch.ops.tail import _tanh
 
@@ -69,4 +70,4 @@ class AutoencoderGenerator(nn.Module):
             h = conv_relu(conv_relu(h, idx), idx + 1)
             idx += 2
         out = getattr(self, f"Conv_{idx}")(h)
-        return _tanh(out.float()).permute(0, 2, 3, 1)
+        return _tanh(at_least_f32(out)).permute(0, 2, 3, 1)

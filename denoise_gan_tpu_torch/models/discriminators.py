@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    BatchNorm, Conv, gamma_normal02, leaky_relu, normal02,
+    BatchNorm, Conv, at_least_f32, gamma_normal02, leaky_relu, normal02,
 )
 
 
@@ -64,7 +64,7 @@ class PatchDiscriminator(nn.Module):
             if i:
                 x = getattr(self, f"BatchNorm_{i - 1}")(x)
             x = leaky_relu(x, 0.2)
-        x = getattr(self, f"Conv_{self.n_blocks}")(x).float()
+        x = at_least_f32(getattr(self, f"Conv_{self.n_blocks}")(x))
         if self.sigmoid_head:
             x = torch.sigmoid(x)
         return x.permute(0, 2, 3, 1)
@@ -117,7 +117,7 @@ class SRGANPaperDiscriminator(nn.Module):
                 skip = x
         x = x + skip
         x = getattr(self, f"Conv_{len(PAPER_BLOCKS)}")(x)
-        return x.float().permute(0, 2, 3, 1)
+        return at_least_f32(x).permute(0, 2, 3, 1)
 
 
 class ConditionalPatchDiscriminator(nn.Module):
@@ -153,4 +153,4 @@ class ConditionalPatchDiscriminator(nn.Module):
         x = self.Conv_3(F.pad(x, (1, 1, 1, 1)))
         x = leaky_relu(self.BatchNorm_2(x), 0.3)
         x = self.Conv_4(F.pad(x, (1, 1, 1, 1)))
-        return x.float().permute(0, 2, 3, 1)
+        return at_least_f32(x).permute(0, 2, 3, 1)

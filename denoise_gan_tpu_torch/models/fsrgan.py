@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    BatchNorm, Conv, PixelShuffleUp, PReLU, conv3x3,
+    BatchNorm, Conv, PixelShuffleUp, PReLU, at_least_f32, conv3x3,
 )
 
 EXPANSION = 6     # inverted-residual expand factor (width multiplier 1)
@@ -111,7 +111,7 @@ class FSRGANTail(nn.Module):
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         u2 = self.up2(self.up1(h.permute(0, 3, 1, 2)))
         out = self.out_conv(u2)
-        return torch.tanh(out.float()).permute(0, 2, 3, 1)
+        return torch.tanh(at_least_f32(out)).permute(0, 2, 3, 1)
 
 
 class FSRGANGenerator(nn.Module):

@@ -20,6 +20,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from denoise_gan_tpu_torch.ops.image import depth_to_space_nchw
+from denoise_gan_tpu_torch.parallel.mesh import (
+    GlobalDraw, all_sum_grad, world_size,
+)
 
 # An initialiser fills a parameter in place from a CPU torch.Generator.
 Init = Callable[[torch.Tensor, "torch.Generator | None"], None]
@@ -61,6 +64,12 @@ def normal02(w: torch.Tensor, generator=None) -> None:
 def gamma_normal02(w: torch.Tensor, generator=None) -> None:
     """N(1, 0.02), the SRGAN BatchNorm scales' init (layers.py:38-40)."""
     w.normal_(1.0, 0.02, generator=generator)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or float64 as it stands (a precision reference): where
+    the JAX package casts a net's output or a loss's inputs to f32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _channel(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -122,6 +131,8 @@ class BatchNorm(nn.Module):
     ``batch_stats_frozen``), the running statistics move by Keras momentum
     ``m``: ``running = m * running + (1 - m) * batch``, the variance biased
     (torch's own BatchNorm keeps ``1 - m`` and the unbiased variance).
+    Under a process group of more than one rank the batch statistics are
+    the global batch's (``_global_moments``), as under the JAX mesh.
     A float64 input computes in float64 (a precision reference)."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
@@ -145,8 +156,11 @@ class BatchNorm(nn.Module):
             return x * _channel(mul, x.dtype) + _channel(add, x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = (0, 2, 3)
-        mean = xf.mean(dim=axes)
-        var = xf.square().mean(dim=axes) - mean.square()
+        if world_size() > 1:
+            mean, var = _global_moments(xf, axes)
+        else:
+            mean = xf.mean(dim=axes)
+            var = xf.square().mean(dim=axes) - mean.square()
         if self.update_stats:
             m = self.momentum
             with torch.no_grad():
@@ -157,6 +171,22 @@ class BatchNorm(nn.Module):
              * _channel(torch.rsqrt(var + self.epsilon), ft)
              * _channel(self.scale, ft) + _channel(self.bias, ft))
         return y.to(x.dtype)
+
+
+def _global_moments(xf: torch.Tensor, axes: tuple[int, ...]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batch mean and E[x^2] - mean^2 over the global batch of a
+    process group (parallel/mesh.py), as GSPMD computes them under the
+    JAX mesh: each rank's per-channel sum, sum of squares and count, in
+    xf's dtype, summed over the ranks by a differentiable all-reduce, so
+    that the gradients flow through the global statistics."""
+    c = xf.shape[1]
+    count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                       device=xf.device)
+    tot = all_sum_grad(torch.cat([xf.sum(dim=axes),
+                                  xf.square().sum(dim=axes), count]))
+    mean = tot[:c] / tot[-1]
+    return mean, tot[c:2 * c] / tot[-1] - mean.square()
 
 
 @contextlib.contextmanager
@@ -183,7 +213,8 @@ class Dropout(nn.Module):
     1 - rate (at 0.5 a kept value doubles, exactly); the identity in eval
     mode.  ``keep`` is a boolean mask of x's shape that the caller passes,
     or a draw of ``torch.rand < 1 - rate`` from the caller's
-    torch.Generator (on x's device; None: torch's global one)."""
+    torch.Generator (on x's device; None: torch's global one), or from a
+    parallel/mesh.py::GlobalDraw (this rank's rows of a global draw)."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
@@ -195,7 +226,9 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        if not isinstance(keep, torch.Tensor):
+        if isinstance(keep, GlobalDraw):
+            keep = keep.rand(x.shape, x.device) < keep_prob
+        elif not isinstance(keep, torch.Tensor):
             keep = torch.rand(x.shape, generator=keep,
                               device=x.device) < keep_prob
         if keep.shape != x.shape:

@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    BatchNorm, Conv, ConvTranspose, Dropout, leaky_relu, normal02,
+    BatchNorm, Conv, ConvTranspose, Dropout, at_least_f32, leaky_relu,
+    normal02,
 )
 from denoise_gan_tpu_torch.ops.tail import _tanh
 
@@ -97,7 +98,8 @@ class Pix2PixGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
         """`dropout` (train mode only): a torch.Generator on x's device to
-        draw the three masks from (None: torch's global one), or the masks
+        draw the three masks from (None: torch's global one), a
+        parallel/mesh.py::GlobalDraw (this rank's rows of them), or the masks
         themselves, NHWC booleans in call order, as flax.linen.Dropout
         draws them."""
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)
@@ -113,4 +115,4 @@ class Pix2PixGenerator(nn.Module):
             x = torch.cat([getattr(self, f"Upsample_{i}")(x, keep), skip],
                           dim=1)
         x = self.ConvTranspose_0(x)
-        return _tanh(x.float()).permute(0, 2, 3, 1)
+        return _tanh(at_least_f32(x)).permute(0, 2, 3, 1)

@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from denoise_gan_tpu_torch.models.layers import (
-    BatchNorm, Conv, PixelShuffleUp, PReLU, conv3x3, gamma_normal02, normal02,
+    BatchNorm, Conv, PixelShuffleUp, PReLU, at_least_f32, conv3x3,
+    gamma_normal02, normal02,
 )
 
 
@@ -80,7 +81,7 @@ class SRGANTail(nn.Module):
         for i in range(self.stages):
             x = getattr(self, f"up{i + 1}")(x)
         out = self.out_conv(x)
-        return torch.tanh(out.float()).permute(0, 2, 3, 1)
+        return torch.tanh(at_least_f32(out)).permute(0, 2, 3, 1)
 
 
 class SRGANGenerator(nn.Module):

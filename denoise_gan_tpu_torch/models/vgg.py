@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from denoise_gan_tpu_torch.io.params import from_jax_params
-from denoise_gan_tpu_torch.models.layers import Conv
+from denoise_gan_tpu_torch.models.layers import Conv, at_least_f32
 
 # (block, conv in block, filters) for conv1_1 .. conv5_4
 VGG19_CFG = [
@@ -38,14 +38,9 @@ FEATURE_SCALE = 12.75
 INIT_SEED = 42
 
 
-def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    """x in f32, or float64 as it stands (a precision reference)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
 def preprocess(img_m11: torch.Tensor) -> torch.Tensor:
     """NHWC [-1, 1] RGB -> caffe BGR, mean-subtracted, f32."""
-    x = ((_at_least_f32(img_m11) + 1.0) * 255.0) / 2.0
+    x = ((at_least_f32(img_m11) + 1.0) * 255.0) / 2.0
     x = x.flip(-1)
     return x - torch.tensor(BGR_MEAN, dtype=x.dtype, device=x.device)
 
@@ -69,7 +64,7 @@ class VGG19Features(nn.Module):
             cin = filters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _at_least_f32(x).permute(0, 3, 1, 2)
+        x = at_least_f32(x).permute(0, 3, 1, 2)
         prev = 1
         for block, conv, _ in VGG19_CFG:
             if block != prev:

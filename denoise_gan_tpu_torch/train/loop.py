@@ -7,13 +7,22 @@ SIGTERM; scalars, the 16 image panels and SSIM every ``save_iter`` steps;
 the final exports ``models/<name>.dgt``, ``models/<name>_disc.dgt`` and a
 timestamped backup copy of the generator's.
 
-One device: the card (``--device cuda``, the default; without a GPU it
-raises) or the CPU (``--device cpu``).  ``--num_devices`` above 1 raises:
-multi-GPU training is not ported (ROADMAP A7).
+Each process drives one device: the card (``--device cuda``, the default;
+without a GPU it raises) or the CPU (``--device cpu``).  Under ``torchrun``
+the processes are the ranks of one data-parallel run (parallel/mesh.py),
+as the JAX loop's hosts are: ``--batch_size`` is one host's batch, a step
+takes ``batch_size`` x hosts images split evenly over the ranks, each rank
+reading its own shard of the files; ``--num_devices`` 0 means every rank,
+any other number must be theirs.  ``--device cuda`` gives rank r the card
+cuda:LOCAL_RANK and NCCL; a named card (``cuda:0``) is shared over gloo.
+Only rank 0 writes (TensorBoard, checkpoints, exports); the other ranks
+take the same steps.  At the end the ranks check that their parameters
+agree and print their checksums.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import signal
@@ -32,6 +41,10 @@ from denoise_gan_tpu_torch.ops.image import (
     high_pass_x_y, renorm, sobel_variation, to_uint8, total_variation_map,
 )
 from denoise_gan_tpu_torch.ops.metrics import ssim
+from denoise_gan_tpu_torch.parallel.mesh import (
+    all_sum, checksum, init_distributed, make_mesh, replicated,
+    same_on_all_ranks,
+)
 from denoise_gan_tpu_torch.train.state import (
     GANTrainState, create_train_state, model_summary, param_count,
 )
@@ -39,7 +52,6 @@ from denoise_gan_tpu_torch.train.step import build_train_step, make_eval_fn
 from denoise_gan_tpu_torch.utils.config import (
     TrainConfig, get_path, parse_args,
 )
-from denoise_gan_tpu_torch.utils.device import resolve_device
 from denoise_gan_tpu_torch.utils.logging import (
     SummaryWriter, timestamped_run_dir,
 )
@@ -122,21 +134,80 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class _NullWriter:
+    """The SummaryWriter of the ranks other than 0: writes nothing."""
+
+    def scalar(self, *a, **k):
+        pass
+
+    def scalars(self, *a, **k):
+        pass
+
+    def image(self, *a, **k):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def _preempted(flag: bool, dev: torch.device, ranks: int) -> bool:
+    """Whether any rank has had a SIGTERM (one all-reduce where there are
+    several ranks, so that they stop at the same step)."""
+    if ranks == 1:
+        return flag
+    return bool(all_sum(torch.tensor([float(flag)], device=dev)).item())
+
+
+def resume_step(manager: CheckpointManager | None, mesh) -> int | None:
+    """The step of the checkpoint that `manager` would restore (None: none
+    or no manager), checked to be the same on every rank: each rank
+    restores the checkpoint itself, since replicated() sends parameters
+    and buffers but not the optimizers' moments or the step count.  A rank
+    that finds another (a checkpoint directory that not every rank reads)
+    raises RuntimeError on every rank."""
+    latest = manager.latest_step() if manager else None
+    if not same_on_all_ranks(-1.0 if latest is None else latest,
+                             mesh.device):
+        where = manager.ckpt_dir if manager else "its checkpoint directory"
+        raise RuntimeError(
+            f"rank {mesh.rank} finds checkpoint step {latest} under {where} "
+            "and another rank finds another; resuming on several ranks "
+            "needs the checkpoints on a filesystem that every rank reads")
+    return latest
+
+
 def train(cfg: TrainConfig, family: str) -> GANTrainState:
-    """A whole run on ``cfg.device``; returns the final state."""
-    if cfg.num_devices > 1:
+    """A whole run on ``cfg.device`` (under torchrun: this rank's part of
+    it); returns the final state."""
+    init_distributed(device=cfg.device)
+    mesh = make_mesh(cfg.num_devices, device=cfg.device)
+    dev, ranks = mesh.device, mesh.size
+    primary = mesh.rank == 0
+    global_bs = cfg.batch_size * mesh.hosts
+    if global_bs % ranks:
+        if mesh.hosts > 1:
+            raise ValueError(
+                f"multi-host training requires the global batch "
+                f"({cfg.batch_size} per host x {mesh.hosts} hosts = "
+                f"{global_bs}) to be divisible by the {ranks} devices; "
+                "adjust --batch_size")
         raise ValueError(
-            f"--num_devices {cfg.num_devices}: multi-GPU training is not "
-            "ported (ROADMAP A7); run on one device")
-    dev = resolve_device(cfg.device)
+            f"global batch {global_bs} not divisible by {ranks} devices")
 
     ckpt_dir = get_path("models/checkpoints", cfg.model_name)
     backup_dir = get_path("models/backups", cfg.model_name)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    os.makedirs(backup_dir, exist_ok=True)
-    os.makedirs(cfg.logdir, exist_ok=True)
+    if primary:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        os.makedirs(backup_dir, exist_ok=True)
+        os.makedirs(cfg.logdir, exist_ok=True)
 
-    pipeline = DataPipeline(cfg)
+    # each rank's shard of the files and its rows of the global batch
+    pipeline = DataPipeline(
+        dataclasses.replace(cfg, batch_size=global_bs // ranks),
+        process_index=mesh.rank, process_count=ranks)
     steps_per_epoch = len(pipeline)
     if steps_per_epoch == 0:
         pipeline.close()
@@ -150,9 +221,12 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
         cfg.save_iter = max(steps_per_epoch, 1)
         print(f"Modified save_iter: {cfg.save_iter}")
 
-    run_dir = timestamped_run_dir(cfg.logdir, cfg.model_name)
-    writer = SummaryWriter(run_dir)
-    print("Created Tensorboard Summary here:", run_dir)
+    if primary:
+        run_dir = timestamped_run_dir(cfg.logdir, cfg.model_name)
+        writer = SummaryWriter(run_dir)
+        print("Created Tensorboard Summary here:", run_dir)
+    else:
+        writer = _NullWriter()
 
     bundle = build_models(family, scale=cfg.scale, fp16=bool(cfg.fp16))
     state = create_train_state(bundle, cfg, dev)
@@ -160,21 +234,25 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
     print(model_summary(f"{family}_discriminator", state.disc.model))
     print(f"Generator params: {param_count(state.gen.model):,}  "
           f"Discriminator params: {param_count(state.disc.model):,}  "
-          f"device: {dev}")
+          f"device: {dev}" + (f", rank {mesh.rank} of {ranks}"
+                              if ranks > 1 else ""))
     vgg = init_vgg_params(device=dev)
 
-    manager = CheckpointManager(ckpt_dir, max_to_keep=cfg.max_to_keep)
+    manager = (CheckpointManager(ckpt_dir, max_to_keep=cfg.max_to_keep)
+               if primary or os.path.isdir(ckpt_dir) else None)
     try:
-        if cfg.retrain and manager.latest_step() is not None:
+        latest = resume_step(manager if cfg.retrain else None, mesh)
+        if latest is not None:
             print("Restoring checkpoint from here:", ckpt_dir)
             state = manager.restore(state)
         elif cfg.retrain:
             state = warm_start_from_exports(state, cfg.model_name)
+        replicated([state.gen.model, state.disc.model], mesh)
 
-        step_fn = build_train_step(bundle, cfg)
+        step_fn = build_train_step(bundle, cfg, mesh=mesh)
         summary_fn = build_summary_fn(bundle, cfg)
         rng = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-        timer = state.timer = StepTimer(cfg.batch_size)
+        timer = state.timer = StepTimer(global_bs)
 
         # checkpoint and stop after the step in flight at a SIGTERM
         preempted = {"flag": False}
@@ -206,10 +284,13 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
                         metrics = step_fn(state, vgg, hr, rng)
                         timer.tick()
                         it += 1
-                        if preempted["flag"]:
+                        # several ranks agree at the log points only
+                        if (ranks == 1 or it % cfg.save_iter == 0) and \
+                                _preempted(preempted["flag"], dev, ranks):
                             print(f"\nSIGTERM: checkpointing at step {it} "
                                   "and exiting")
-                            manager.save(it, state)
+                            if primary:
+                                manager.save(it, state)
                             return state
                         if it % cfg.save_iter != 0:
                             continue
@@ -234,7 +315,8 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
                 _sync(dev)
                 train_time = time.time() - train_begin
 
-                if cfg.ckpt and epoch % cfg.ckpt_every_epochs == 0:
+                if cfg.ckpt and epoch % cfg.ckpt_every_epochs == 0 \
+                        and primary:
                     manager.save(it, state)
                 total_time = time.time() - train_begin
                 sps = steps_per_epoch / max(train_time, 1e-9)
@@ -253,10 +335,18 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler)
 
-        if cfg.ckpt:
+        if cfg.ckpt and primary:
             manager.save(it, state)
 
-        if cfg.save_model:
+        if ranks > 1:
+            total = checksum(state.gen.model, state.disc.model)
+            print(f"rank {mesh.rank} of {ranks}: parameter checksum "
+                  f"{total!r}")
+            if not same_on_all_ranks(total, dev):
+                raise RuntimeError("the ranks' parameters differ after "
+                                   "training")
+
+        if cfg.save_model and primary:
             short = time.strftime("%m%d_%H%M")
             gen_path = get_path("models", f"{cfg.model_name}.dgt")
             export_net(gen_path, family, cfg.scale, state.gen.model)

@@ -18,6 +18,18 @@ alternation), as the JAX step and the reference do.  The semantics kept:
 * PSNR every step (SSIM is left to the loop's summaries).
 The step runs with TF32 off and, on the CPU, without oneDNN
 (utils/device.py::exact_f32), so that f32 is f32.
+
+Data parallelism (``mesh``, parallel/mesh.py), what GSPMD does for the
+JAX step under its mesh: each rank steps on its rows of the global batch;
+BatchNorm's training statistics are the global batch's
+(models/layers.py); the JPEG qualities and pix2pix's dropout masks are
+drawn over the global batch, in the one-process step's order, each rank
+keeping its rows; both nets' gradients are summed over the ranks and
+divided by their number between the backward passes and the updates
+(explicitly: DistributedDataParallel's hooks would fight the two nets,
+the two D forwards and pix2pix's second G forward); the metrics are the
+ranks' mean.  Every rank applies the same gradients, so the replicas stay
+bit-identical.
 """
 
 from __future__ import annotations
@@ -35,6 +47,9 @@ from denoise_gan_tpu_torch.models.layers import batch_stats_frozen
 from denoise_gan_tpu_torch.models.vgg import content_features
 from denoise_gan_tpu_torch.ops.image import renorm
 from denoise_gan_tpu_torch.ops.metrics import psnr
+from denoise_gan_tpu_torch.parallel.mesh import (
+    GlobalDraw, Mesh, all_mean, batch_sharding,
+)
 from denoise_gan_tpu_torch.train.state import GANTrainState
 from denoise_gan_tpu_torch.utils.config import TrainConfig
 from denoise_gan_tpu_torch.utils.device import exact_f32, no_tf32
@@ -65,21 +80,26 @@ def _update(net, grads: list[torch.Tensor], count: int) -> None:
 
 
 def build_train_step(bundle: ModelBundle, cfg: TrainConfig,
-                     degrade: bool = True) -> Callable:
+                     degrade: bool = True, mesh: Mesh | None = None
+                     ) -> Callable:
     """step(state, vgg, batch, generator=None, dropout=None, mark=None) ->
     metrics (0-dim tensors on the state's device), updating `state` in
     place and counting its step.
 
     `batch`: the NHWC [0, 1] HR batch, or with ``degrade=False`` a
-    pre-degraded ``(img_in, img_tgt)`` pair in [-1, 1].  `generator`: the
-    torch.Generator (on the batch's device) of the random JPEG qualities
-    (``cfg.jpeg_quality`` 0: 25..75 per image) and of pix2pix's dropout.
-    `dropout` (pix2pix): instead of draws, the masks of the main and the
-    identity pass, two lists of three NHWC boolean masks
-    (models/pix2pix.py).  `mark(part)` is called as each of PARTS ends
-    (timing; None: not called)."""
+    pre-degraded ``(img_in, img_tgt)`` pair in [-1, 1]; with a `mesh` of
+    more than one rank, this rank's rows of the global batch
+    (parallel/mesh.py::shard_batch).  `generator`: the torch.Generator (on
+    the batch's device, seeded alike on every rank) of the random JPEG
+    qualities (``cfg.jpeg_quality`` 0: 25..75 per image) and of pix2pix's
+    dropout.  `dropout` (pix2pix): instead of draws, the masks of the main
+    and the identity pass, two lists of three NHWC boolean masks
+    (models/pix2pix.py), this rank's rows.  `mark(part)` is called as each
+    of PARTS ends (timing; None: not called)."""
     from_logits = not bundle.disc_sigmoid
     family = bundle.name
+    shard = batch_sharding(mesh) if mesh is not None and mesh.size > 1 \
+        else None
 
     def disc_apply(disc, cond, img):
         return disc(cond, img) if bundle.conditional_disc else disc(img)
@@ -91,12 +111,13 @@ def build_train_step(bundle: ModelBundle, cfg: TrainConfig,
              dropout=None, mark=None) -> dict[str, torch.Tensor]:
         mark = mark or (lambda part: None)
         gen, disc = state.gen.model, state.disc.model
-        drop_main, drop_ident = dropout or (generator, generator)
+        draw = generator if shard is None else GlobalDraw(generator, shard)
+        drop_main, drop_ident = dropout or (draw, draw)
         with exact_f32():
             if degrade:
                 img_in, img_tgt = degrade_pair(
                     batch, cfg.scale, max(cfg.jpeg_quality, 1), generator,
-                    random_quality=cfg.jpeg_quality <= 0)
+                    random_quality=cfg.jpeg_quality <= 0, shard=shard)
             else:
                 img_in, img_tgt = batch
             mark("degrade")
@@ -136,6 +157,10 @@ def build_train_step(bundle: ModelBundle, cfg: TrainConfig,
                                             half=family == "fsrgan")
             mark("disc_forward")
             disc_grads = _grads(disc_total, list(disc.parameters()))
+            if shard is not None:
+                grads = all_mean(gen_grads + disc_grads)
+                gen_grads = grads[:len(gen_grads)]
+                disc_grads = grads[len(gen_grads):]
             mark("disc_backward")
 
             # ---------------- optimizer updates ----------------
@@ -150,7 +175,11 @@ def build_train_step(bundle: ModelBundle, cfg: TrainConfig,
                        psnr=quality, adv_loss=adv, content_loss=cont,
                        mse_loss=mse, mae_loss=mae, var_loss=var,
                        identity_loss=identity)
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            metrics = dict(zip(metrics, all_mean(
+                [v.float() for v in metrics.values()])))
+        return metrics
 
     return step
 

@@ -45,7 +45,7 @@ class TrainConfig:
 
     # the JAX package's additions to the reference's flags
     seed: int = 0
-    num_devices: int = 0          # 0 = all visible devices; > 1 refused
+    num_devices: int = 0          # 0 = every rank; else their number
     cache_images: int = 1         # cache decoded images in host RAM
     data_workers: int = 8         # host decode thread count
     ckpt_every_epochs: int = 5
@@ -57,7 +57,7 @@ class TrainConfig:
     check_numerics: int = 1       # raise on NaN/Inf losses at log points
 
     # the port's own
-    device: str = "cuda"          # 'cuda' (the card) or 'cpu'
+    device: str = "cuda"          # 'cuda' (cuda:LOCAL_RANK), 'cuda:N', 'cpu'
 
     def suffix_model_name(self) -> None:
         """``model_name += _{scale}x_{jpeg_quality}q[_fp16]``."""

@@ -39,13 +39,15 @@ The video CLI (infer/video.py) on the card against the CPU on the same
 tiled), max 1 level on < 1e-3 of the bytes, PSNR within 0.05 dB; and the
 CLI's kernel engine (K1 or K2 launched once a frame) byte for byte
 against the same engine called directly on the card.
-Training (plain PyTorch, no hand kernel): one step of each family on the
-card against the CPU from the same weights and pair, in f32 with TF32
-off, within the CPU tests' tolerances but max |d| per gradient tensor
-widened to 5e-2 of its largest value (leaky-ReLU kinks; pix2pix at 256,
-batch 1: losses, statistics, gradient directions and norms, the
-generator's widened to its BatchNorms' conditioning), the discriminator
-half on the same inputs to the full rule; train-mode BatchNorm, the JPEG
+Training (plain PyTorch, no hand kernel): one f32 step (TF32 off) of
+FSRGAN, the autoencoder and SRGAN on the card against the same step in
+float64 on the CPU, from the same weights and pair, within the CPU tests'
+tolerances, max |d| per gradient tensor within STEP_GRAD_F64 of its
+largest value; pix2pix at 256, batch 1, card against the CPU's f32 step
+(losses, statistics, gradient directions and norms, the generator's
+widened to its BatchNorms' conditioning); the autoencoder's
+discriminator half, card against CPU on the same inputs, to the full
+rule; train-mode BatchNorm, the JPEG
 round trip and the degradation card against CPU; the FSRGAN trainer's
 main on the card by default, its exports read back equal.
 The canvas epilogue (the bf16 tanh that the u8 epilogue rounds) is held to
@@ -65,6 +67,12 @@ skip_without_torch()
 
 pytestmark = pytest.mark.gpu
 
+# max |d| / max |g| per gradient tensor, the card's f32 training step
+# against float64 on these random pairs: the card read up to 1.11e-2 (a
+# leaky-ReLU kink flipped: the autoencoder's discriminator; on FSRGAN's
+# pair the CPU's f32 step is the one 2.16e-2 off, the card 3.4e-5), so
+# 2e-2 (PERF.md section 6)
+STEP_GRAD_F64 = 2e-2
 # (ny, nx, core_rows, height, width)
 GEOMETRIES = [
     (1, 2, 24, 24, 240),      # frame = grid, band does not divide core_rows
@@ -557,23 +565,22 @@ def training(port):
 @pytest.mark.parametrize("family,crop,batch", [
     ("fsrgan", 64, 4), ("autoencoder", 64, 2), ("srgan", 64, 2)])
 def test_train_step_card_matches_cpu(training, family, crop, batch):
-    """One f32 step (TF32 off) on the card against the CPU from the same
-    weights and pair: losses within 1e-5 relative, new BN statistics
-    within 1e-5 of each tensor's largest value, the gradients recovered
-    from Adam per tensor cosine >= 0.9999, norms within 1e-3 (those at the
-    noise level below it on both sides), and max |d| <= 5e-2 max |g_CPU|:
-    the CPU tests' 1e-3, widened by the readings, because a leaky-ReLU
-    kink that the two devices' roundings put on either side moves a
-    gradient summed over N positions by ~1/sqrt(N) of its largest value
-    (test_disc_gradient_same_inputs_card_matches_cpu); no hand kernel."""
-    r = training("cuda_step_vs_cpu", family, crop, batch)
+    """One f32 step (TF32 off) on the card against the same step in
+    float64 on the CPU from the same weights and pair: losses within 1e-5
+    relative, new BN statistics within 1e-5 of each tensor's largest
+    value, the gradients recovered from Adam per tensor cosine >= 0.9999,
+    norms within 1e-3 (those at the noise level below it on both sides)
+    and max |d| <= STEP_GRAD_F64 max |g_f64|; no hand kernel.  Printed
+    beside them: the card against the CPU's f32 step, and the CPU's f32
+    step against float64."""
+    r = training("cuda_step_vs_cpu", family, crop, batch, f64=True)
     print(r)
     assert r["launches"] == 0
-    assert r["loss"] <= 1e-5 and r["stats"] <= 1e-5
+    assert r["loss64"] <= 1e-5 and r["stats64"] <= 1e-5
     for net in ("gen", "disc"):
-        cos, norm, rel, noise_ok = r[net]
+        cos, norm, rel, noise_ok = r[net + "64"]
         assert cos >= 0.9999 and norm <= 1e-3 and noise_ok, (net, r[net])
-        assert rel <= 5e-2, (net, r[net])
+        assert rel <= STEP_GRAD_F64, (net, r[net + "64"])
 
 
 def test_disc_gradient_same_inputs_card_matches_cpu(training):

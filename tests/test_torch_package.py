@@ -38,7 +38,8 @@ def _sources():
         REPO / "chip_smoke.py", REPO / "tests" / "torch_process.py",
         REPO / "tests" / "torch_side.py",
         REPO / "tests" / "torch_side_serving.py",
-        REPO / "tests" / "torch_side_training.py"]
+        REPO / "tests" / "torch_side_training.py",
+        REPO / "tests" / "torch_side_parallel.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -149,11 +149,12 @@ def test_other_trainers_run(port, tmp_path, family, crop, images):
 
 def test_trainer_refusals(port, tmp_path):
     """Without --device the trainer asks for the card and, with no GPU,
-    raises; --num_devices 2 names the missing multi-GPU port."""
+    raises; --num_devices 2 in a run of one process raises, naming
+    torchrun (one process a device)."""
     seed_images(tmp_path, 2, 32)
     base = ["--image_dir", str(tmp_path / "data"), "--crop_size", "32"]
     kind, msg = port("trainer_refusal", base)
     assert kind == "RuntimeError" and "CUDA" in msg
     kind, msg = port("trainer_refusal", base + ["--device", "cpu",
                                                 "--num_devices", "2"])
-    assert kind == "ValueError" and "A7" in msg
+    assert kind == "ValueError" and "torchrun --nproc_per_node=2" in msg

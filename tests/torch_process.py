@@ -55,16 +55,21 @@ def _run(module: str, name: str, args: tuple, kwargs: dict):
 
 
 @contextlib.contextmanager
-def torch_process(module: str = "torch_side"):
+def torch_process(module: str = "torch_side", workers: int = 1):
     """Yield ``call(name, *args, **kwargs)``, which runs ``<module>.<name>``
-    (a module of tests/, by default torch_side) in one spawned child process
-    and returns its result."""
+    (a module of tests/, by default torch_side) in a spawned child process
+    (one of `workers`) and returns its result.  ``call.submit(name, ...)``
+    starts it and returns its future, so that the test can go on meanwhile
+    (with the JAX side, say)."""
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=ctx, initializer=_exit_with_parent,
+            workers, mp_context=ctx, initializer=_exit_with_parent,
             initargs=(os.getpid(),)) as pool:
-        def call(name: str, *args, **kwargs):
-            return pool.submit(_run, module, name, args,
-                               kwargs).result(TIMEOUT_S)
+        def submit(name: str, *args, **kwargs) -> concurrent.futures.Future:
+            return pool.submit(_run, module, name, args, kwargs)
 
+        def call(name: str, *args, **kwargs):
+            return submit(name, *args, **kwargs).result(TIMEOUT_S)
+
+        call.submit = submit
         yield call

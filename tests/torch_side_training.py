@@ -526,12 +526,15 @@ def _grad_readings(got: dict, want: dict) -> tuple[float, float, float,
     return cos_min, norm_max, rel_max, noise_ok
 
 
-def cuda_step_vs_cpu(family, crop, batch, seed=0):
+def cuda_step_vs_cpu(family, crop, batch, seed=0, f64=False):
     """One f32 step of `family` (degrade=False) on the card and on the CPU
-    from the same weights and pair: {"loss": largest relative loss
-    difference, "stats": largest BN statistic difference / the tensor's
-    largest magnitude, "gen"/"disc": _grad_readings card vs CPU,
-    "launches": hand-kernel launches during the card's step}."""
+    from the same weights and pair, and with `f64` the same step in
+    float64 on the CPU: {"loss": largest relative loss difference,
+    "stats": largest BN statistic difference / the tensor's largest
+    magnitude, "gen"/"disc": _grad_readings, each of the card against the
+    CPU's f32 step; with `f64` the same of the card ("*64") and of the
+    CPU's f32 step ("cpu_*64") against float64; "launches": hand-kernel
+    launches during the card's step}."""
     cfg = tconfig.make_config(family, crop_size=crop, batch_size=batch)
     bundle = build_models(family, scale=cfg.scale)
     rng = np.random.default_rng(seed)
@@ -541,8 +544,14 @@ def cuda_step_vs_cpu(family, crop, batch, seed=0):
         np.float32))
     step = build_train_step(bundle, cfg, degrade=False)
     states, metrics = {}, {}
-    for dev in ("cuda", "cpu"):
-        states[dev] = create_train_state(bundle, cfg, dev, seed=seed)
+    runs = {"cuda": ("cuda", torch.float32), "cpu": ("cpu", torch.float32)}
+    if f64:
+        runs["f64"] = ("cpu", torch.float64)
+    for key, (dev, dtype) in runs.items():
+        states[key] = create_train_state(bundle, cfg, dev, seed=seed)
+        vgg = init_vgg_params(device=dev)
+        for m in (states[key].gen.model, states[key].disc.model, vgg):
+            m.to(dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
         masks = None
         if family == "pix2pix":
@@ -552,24 +561,32 @@ def cuda_step_vs_cpu(family, crop, batch, seed=0):
             masks = tuple([(torch.rand(sh, generator=g) < 0.5).to(dev)
                            for sh in shapes] for _ in range(2))
         before = _hand_launches()
-        metrics[dev] = {k: float(v) for k, v in step(
-            states[dev], init_vgg_params(device=dev),
-            (img_in.to(dev), img_tgt.to(dev)), gen, dropout=masks).items()}
-        if dev == "cuda":
+        metrics[key] = {k: float(v) for k, v in step(
+            states[key], vgg, (img_in.to(dev, dtype), img_tgt.to(dev, dtype)),
+            gen, dropout=masks).items()}
+        if key == "cuda":
             launches = _hand_launches() - before
-    out = {"launches": launches, "loss": max(
-        abs(metrics["cuda"][k] - v) / max(abs(v), 1e-30)
-        for k, v in metrics["cpu"].items())}
     grads = {k: _recovered(states[k]) for k in states}
-    for net in ("gen", "disc"):
-        out[net] = _grad_readings(grads["cuda"][net], grads["cpu"][net])
-    stats = 0.0
-    for net in ("gen", "disc"):
-        want = dict(getattr(states["cpu"], net).model.named_buffers())
-        for n, b in getattr(states["cuda"], net).model.named_buffers():
-            stats = max(stats, float((b.cpu() - want[n]).abs().max())
-                        / max(float(want[n].abs().max()), 1e-30))
-    out["stats"] = stats
+    out = {"launches": launches}
+    # (prefix, suffix) of the keys: card vs CPU, card vs and CPU vs f64
+    pairs = {("", ""): ("cuda", "cpu")}
+    if f64:
+        pairs.update({("", "64"): ("cuda", "f64"),
+                      ("cpu_", "64"): ("cpu", "f64")})
+    for (pre, suf), (a, b) in pairs.items():
+        out[f"{pre}loss{suf}"] = max(
+            abs(metrics[a][k] - v) / max(abs(v), 1e-30)
+            for k, v in metrics[b].items())
+        stats = 0.0
+        for net in ("gen", "disc"):
+            out[f"{pre}{net}{suf}"] = _grad_readings(grads[a][net],
+                                                     grads[b][net])
+            want = dict(getattr(states[b], net).model.named_buffers())
+            for n, buf in getattr(states[a], net).model.named_buffers():
+                w = want[n].double().cpu()
+                stats = max(stats, float((buf.double().cpu() - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30))
+        out[f"{pre}stats{suf}"] = stats
     return out
 
 

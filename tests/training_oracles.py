@@ -134,14 +134,9 @@ def dropout_masks():
     masks.extend(found[i] for i in sorted(found))
 
 
-@functools.lru_cache(maxsize=None)
-def step_case(family: str, crop: int, batch: int, seed: int = 0):
-    """The JAX package's step (degrade=False, jitted, run once) on numpy
-    weights and a numpy pair: a dict of the inputs (gen and disc
-    (params, stats), vgg, img_in, img_tgt), JAX's metrics, the gradients
-    recovered from both Adam states, the new statistics and, for pix2pix,
-    the dropout masks that Flax drew (main pass, identity pass), taken by
-    intercepting flax.linen.Dropout."""
+def step_inputs(family: str, crop: int, batch: int, seed: int = 0) -> dict:
+    """step_case's inputs, drawn from `seed` without running a step: gen
+    and disc (params, stats), vgg, img_in, img_tgt."""
     cfg = make_config(family, crop_size=crop, batch_size=batch)
     bundle = build_models(family, scale=cfg.scale)
     lr = crop // cfg.scale if bundle.upscales else crop
@@ -162,6 +157,21 @@ def step_case(family: str, crop: int, batch: int, seed: int = 0):
         np.repeat(np.repeat(img_in, crop // lr, 1), crop // lr, 2)
         + rng.standard_normal((batch, crop, crop, 3)) * 0.1,
         -1, 1).astype(np.float32)
+    return dict(gen=gen, disc=disc, vgg=vgg, img_in=img_in, img_tgt=img_tgt)
+
+
+@functools.lru_cache(maxsize=None)
+def step_case(family: str, crop: int, batch: int, seed: int = 0):
+    """The JAX package's step (degrade=False, jitted, run once) on numpy
+    weights and a numpy pair: a dict of the inputs (step_inputs), JAX's
+    metrics, the gradients recovered from both Adam states, the new
+    statistics and, for pix2pix, the dropout masks that Flax drew (main
+    pass, identity pass), taken by intercepting flax.linen.Dropout."""
+    cfg = make_config(family, crop_size=crop, batch_size=batch)
+    bundle = build_models(family, scale=cfg.scale)
+    inputs = step_inputs(family, crop, batch, seed)
+    gen, disc, vgg = inputs["gen"], inputs["disc"], inputs["vgg"]
+    img_in, img_tgt = inputs["img_in"], inputs["img_tgt"]
 
     gen_tx, disc_tx = make_optimizers(cfg, family)
     state = GANTrainState(
@@ -176,8 +186,7 @@ def step_case(family: str, crop: int, batch: int, seed: int = 0):
         jax.block_until_ready(metrics)
     b1 = 0.5 if family == "pix2pix" else 0.9
     out = {
-        "inputs": dict(gen=gen, disc=disc, vgg=vgg, img_in=img_in,
-                       img_tgt=img_tgt),
+        "inputs": inputs,
         "metrics": {k: float(v) for k, v in metrics.items()
                     if k != "gen_output"},
         "gen_grads": jax.tree.map(lambda m: np.asarray(m) / (1 - b1),
