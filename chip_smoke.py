@@ -284,6 +284,25 @@ Phases, each printed on its own line:
    Printed: the two-rank step's ms beside the one-process step's, with the
    card's name and power limit (two ranks sharing one card: not a scaling
    figure), and the phase's time.
+4i. (a) A reference Keras .h5 on the card (io/hdf5.py, io/keras_h5.py;
+   no h5py there): tests/data/fsrgan_ref.h5 (the reference FSRGAN at full
+   width, saved by Keras from numpy-seeded weights) read by the port's
+   reader, each dataset's shape and sha256 equal to its sidecar's; the
+   port's converter (python3 -m denoise_gan_tpu_torch.io.keras_h5) writes
+   a .dgt of it; the video CLI (infer_video_torch.py's main) on a seeded
+   2-frame 1080p RGBA AVI with --model the .h5 and with the .dgt, counts
+   zeroed just before each run and read just after: K1 (w8a8) once a
+   frame, the frames byte-equal; the K3-body engine from each, K3 six
+   times and K1 once a frame, byte-equal; printed, the load time of each
+   onto the card.  (b) The space axis (parallel/spatial.py): two ranks
+   spawned over gloo sharing cuda:0 (as phase 4h), FSRGAN and SRGAN at
+   full width from seeded weights, whole-frame forward of a seeded 1080p
+   frame, rows 540 / 540, f32 (TF32 off) and bf16: each rank's rows
+   against the one-process forward on the card (f32 max |d| <= 1e-4, the
+   JAX test's tolerance, byte-equality printed; bf16 within the bf16
+   envelope in u8 levels), one halo exchange a conv wider than 1x1, the
+   gathered frame equal on both ranks; printed, each rank's peak memory
+   beside the one-process peak, ms a forward and the exchanges' bytes.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -376,8 +395,9 @@ from denoise_gan_tpu_torch.infer.fast import build_fast_coarse, \
 from denoise_gan_tpu_torch.io import avi
 from denoise_gan_tpu_torch.data import native, pipeline
 from denoise_gan_tpu_torch.data.degrade import degrade_pair
+from denoise_gan_tpu_torch.io import hdf5, keras_h5
 from denoise_gan_tpu_torch.io.checkpoint import export_generator, \
-    load_export_into
+    load_export_into, load_generator
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator, build_models
 from denoise_gan_tpu_torch.models.vgg import init_vgg_params
@@ -388,8 +408,10 @@ from denoise_gan_tpu_torch.ops import mbconv
 from denoise_gan_tpu_torch.ops import image as image_ops
 from denoise_gan_tpu_torch.ops import metrics
 from denoise_gan_tpu_torch.ops.image import resize_bicubic
+from denoise_gan_tpu_torch.models.layers import Conv
+from denoise_gan_tpu_torch.parallel import spatial
 from denoise_gan_tpu_torch.parallel.mesh import (
-    init_distributed, make_mesh, map_frames, shard_batch,
+    init_distributed, make_mesh, map_frames, row_range, shard_batch,
 )
 from denoise_gan_tpu_torch.ops import tail as tail_ops
 from denoise_gan_tpu_torch.ops import tail_srgan
@@ -3201,20 +3223,22 @@ def _par_rank(rank: int, store: str, hr: torch.Tensor, out_dir: str
         pickle.dump(out, f)
 
 
-def run_ranks(hr: torch.Tensor) -> list[dict]:
-    """Phase 4h's ranks, spawned, joined within PAR_RUN_S (a rank's
-    failure raises here; ranks still running then are killed)."""
+def run_spawned(fn: Callable, args: tuple, limit_s: float, phase: str
+                ) -> list[dict]:
+    """fn(rank, store, *args, out_dir) on RANKS spawned ranks, joined
+    within `limit_s` (a rank's failure raises here; ranks still running
+    then are killed): each rank's pickled result."""
     import torch.multiprocessing as mp
-    with tempfile.TemporaryDirectory(prefix="dgt_4h_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"dgt_{phase}_") as tmp:
         ctx = mp.start_processes(
-            _par_rank, args=(os.path.join(tmp, "store"), hr, tmp),
+            fn, args=(os.path.join(tmp, "store"), *args, tmp),
             nprocs=RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + PAR_RUN_S
+        deadline = time.monotonic() + limit_s
         try:
             while not ctx.join(timeout=1.0):
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"phase 4h's ranks ran past "
-                                       f"{PAR_RUN_S} s")
+                    raise TimeoutError(f"phase {phase}'s ranks ran past "
+                                       f"{limit_s} s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():
@@ -3292,7 +3316,7 @@ def parallel_phase(hr: torch.Tensor, smi: str) -> None:
     serving = par_serving(one_mesh)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    ranks = run_ranks(hr)
+    ranks = run_spawned(_par_rank, (hr,), PAR_RUN_S, "4h")
     print(f"  the ranks ran in {time.perf_counter() - t1:.1f} s (spawned, "
           "each joining over a file store)")
     for r, got in enumerate(ranks):
@@ -3361,6 +3385,282 @@ def parallel_phase(hr: torch.Tensor, smi: str) -> None:
     codec_reading()
     print(f"  phase 4h took {time.perf_counter() - t0:.1f} s")
 
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: a reference Keras .h5 on the card, and the space axis
+
+ROOT = Path(__file__).resolve().parent
+H5_FIXTURE = ROOT / "tests" / "data" / "fsrgan_ref.h5"
+H5_SIDECAR = H5_FIXTURE.with_suffix(".json")
+H5_DIR = ROOT / "_h5_smoke"            # the phase's files (deleted after)
+H5_FRAMES = 2
+H5_LOADS = 3                            # timed loads, after one
+SPACE_TOL = 1e-4                        # tests/test_parallel.py:58-59
+SPACE_REPEATS = 2                       # timed forwards, after the first
+SPACE_RUN_S = 300                       # both ranks, start to end
+SPACE_CASES = (("fsrgan", torch.float32), ("fsrgan", torch.bfloat16),
+               ("srgan", torch.float32), ("srgan", torch.bfloat16))
+
+
+def h5_datasets(group, prefix: str = "") -> dict:
+    """{path: dataset} under an io/hdf5.py group."""
+    out = {}
+    for name in group.keys():
+        node, path = group[name], f"{prefix}{name}"
+        if isinstance(node, hdf5.Group):
+            out.update(h5_datasets(node, path + "/"))
+        else:
+            out[path] = node
+    return out
+
+
+def fixture_hashes() -> None:
+    """The fixture read by io/hdf5.py: the same datasets as the sidecar
+    lists, each one's float32 bytes of its sha256."""
+    side = json.loads(H5_SIDECAR.read_text())
+    t0 = time.perf_counter()
+    found = h5_datasets(hdf5.File(str(H5_FIXTURE)))
+    bad = [d["path"] for d in side["datasets"]
+           if d["path"] not in found or hashlib.sha256(np.ascontiguousarray(
+               found[d["path"]][()], np.float32).tobytes()).hexdigest()
+           != d["sha256"] or list(found[d["path"]].shape) != d["shape"]]
+    ms = (time.perf_counter() - t0) * 1e3
+    if bad or len(found) != len(side["datasets"]):
+        raise AssertionError(f"{H5_FIXTURE.name}: {len(found)} datasets, "
+                             f"the sidecar {len(side['datasets'])}; "
+                             f"differing {bad[:4]}")
+    print(f"  {H5_FIXTURE.name} ({H5_FIXTURE.stat().st_size:,} bytes, "
+          f"written by {side['writer']}): {len(found)} datasets read by "
+          f"io/hdf5.py ({ms:.1f} ms), each one's shape and sha256 equal to "
+          "the sidecar's")
+
+
+def load_ms(path: str, dev) -> float:
+    """ms of io/checkpoint.py::load_generator(path) onto the card, host
+    clock ending in a synchronize, mean of H5_LOADS after one."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        load_generator(path, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(H5_LOADS):
+            load_generator(path, device=dev)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / H5_LOADS * 1e3
+
+
+def h5_phase(smi: str) -> None:
+    """Phase 4i (a) (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    print(f"phase 4i(a) a reference Keras .h5 on the card [{smi}]:")
+    fixture_hashes()
+    shutil.rmtree(H5_DIR, ignore_errors=True)
+    H5_DIR.mkdir()
+    try:
+        h5, dgt = str(H5_FIXTURE), str(H5_DIR / "fsrgan_ref.dgt")
+        keras_h5.main(["--h5", h5, "--out", dgt])
+        rng = np.random.default_rng(SEED + 11)
+        frames = [np.ascontiguousarray((seeded_frame(
+            rng, HEIGHT, WIDTH, "cpu").numpy() * 255 + 0.5).astype(
+                np.uint8)[..., ::-1]) for _ in range(H5_FRAMES)]
+        video = str(H5_DIR / "in.avi")
+        writer = avi.VideoWriter(video, 25.0, (WIDTH, HEIGHT))
+        for f in frames:
+            writer.write(f)
+        writer.release()
+        fam = FAMILIES[0]
+        got = {}
+        for name, path in (("h5", h5), ("dgt", dgt)):
+            argv = ["--input_video", video, "--output_video",
+                    str(H5_DIR / f"{name}.avi"), "--model", path,
+                    "--score", "0"]
+            _, got[name] = run_cli(
+                f"video CLI --model {Path(path).name} (kernel engine w8a8)",
+                argv, {fam.key(fam.kernel, "w8a8"): H5_FRAMES})
+        if len(got["h5"]) != H5_FRAMES or any(
+                not np.array_equal(a, b) for a, b in zip(got["h5"],
+                                                         got["dgt"])):
+            raise AssertionError("the CLI's frames from the .h5 and the "
+                                 ".dgt differ")
+        print(f"    {H5_FRAMES} frames {got['h5'][0].shape} from the .h5 "
+              "byte-equal to those from the .dgt (the port's converter)")
+        x01 = [rgb01(f, dev) for f in frames]
+        want = {"fused_mbconv": 6 * H5_FRAMES,
+                fam.key(fam.kernel, "w8a8"): H5_FRAMES}
+        digests = {}
+        for name, path in (("h5", h5), ("dgt", dgt)):
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, model = load_generator(path, device=dev)
+            body, tw, brc = ke.prepare_mbconv_fsrgan_engine(
+                model, HEIGHT, WIDTH, q8_calib_frame=x01[0])
+            engine = ke.build_kernel_engine(body, tw, HEIGHT, WIDTH, brc=brc)
+            reset_counts()
+            outs = [engine(x) for x in x01]
+            torch.cuda.synchronize()
+            launches = fired()
+            if launches != want:
+                raise AssertionError(f"K3-body engine from the {name}: "
+                                     f"launches {launches}, not {want}")
+            check_output(f"K3-body engine from the .{name}", outs[0],
+                         (4 * HEIGHT, 4 * WIDTH, 3))
+            digests[name] = [digest(o) for o in outs]
+        if digests["h5"] != digests["dgt"]:
+            raise AssertionError("the K3-body engines from the .h5 and the "
+                                 ".dgt differ")
+        print(f"  K3-body engine (w8a8) from the .h5 byte-equal to the one "
+              f"from the .dgt on {H5_FRAMES} frames; launches {want}")
+        print(f"  load_generator onto the card, host clock, mean of "
+              f"{H5_LOADS} after one: .h5 {load_ms(h5, dev):.1f} ms "
+              f"({H5_FIXTURE.stat().st_size:,} bytes), .dgt "
+              f"{load_ms(dgt, dev):.1f} ms ({os.path.getsize(dgt):,} "
+              f"bytes) [{smi}]")
+    finally:
+        shutil.rmtree(H5_DIR, ignore_errors=True)
+    print(f"  phase 4i(a) took {time.perf_counter() - t0:.1f} s")
+
+
+def space_model(name: str, dtype, dev):
+    """The seeded full-width generator of phase 3's draw (rng SEED + 12)
+    in compute dtype `dtype`."""
+    fam = FAMILIES[0 if name == "fsrgan" else 1]
+    model = build_generator(name, dtype=dtype, device=dev)
+    return from_jax_params(model, *seeded_flax_tree(
+        model, np.random.default_rng(SEED + 12), fam.body_gain,
+        fam.out_gain))
+
+
+def space_forward(name: str, dtype, mesh) -> dict:
+    """The whole-frame forward of `name` in `dtype` on this rank's rows of
+    the seeded 1080p frame (rng SEED + 13), TF32 off: one process runs the
+    plain forward, several ranks parallel/spatial.py::spatial_apply.  Its
+    output rows, the peak of torch.cuda.max_memory_allocated over the
+    first forward, the halo exchanges and their bytes in it, and the ms a
+    forward (CUDA events over SPACE_REPEATS after it)."""
+    dev = mesh.device
+    model = space_model(name, dtype, dev)
+    x = seeded_frame(np.random.default_rng(SEED + 13), HEIGHT, WIDTH,
+                     dev)[None] * 2.0 - 1.0
+    lo, hi = row_range(HEIGHT, mesh)
+    x = x[:, lo:hi].contiguous()
+
+    def run():
+        if mesh.size == 1:
+            with torch.no_grad():
+                return model(x)
+        return spatial.spatial_apply(model, x, HEIGHT, mesh)
+
+    with no_tf32():
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        spatial.reset_counts()
+        out = run()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        exch = dict(spatial.counts)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(SPACE_REPEATS):
+            run()
+        end.record()
+        torch.cuda.synchronize(dev)
+    convs = sum(1 for m in model.modules() if isinstance(m, Conv)
+                and m.weight.shape[-1] > 1)
+    return {"out": out, "peak": peak, "ms": start.elapsed_time(end)
+            / SPACE_REPEATS, "convs": convs, **exch}
+
+
+def _space_rank(rank: int, store: str, ref_dir: str, out_dir: str) -> None:
+    """One rank of phase 4i (b) (spawned): gloo on the card cuda:0.  For
+    each case its rows against the one-process output saved in `ref_dir`
+    (f32: max |d| and byte-equality; bf16: u8 levels), and the digest of
+    the frame gathered from both ranks."""
+    import torch.distributed as dist
+    init_distributed(backend="gloo", device="cuda:0",
+                     init_method=f"file://{store}", rank=rank,
+                     world_size=RANKS, timeout_s=PAR_JOIN_S)
+    mesh = make_mesh(device="cuda:0")
+    out = {}
+    for name, dtype in SPACE_CASES:
+        key = f"{name}-{str(dtype).split('.')[1]}"
+        got = space_forward(name, dtype, mesh)
+        rows = got.pop("out")
+        lo, hi = row_range(4 * HEIGHT, mesh, unit=4)
+        want = torch.load(os.path.join(ref_dir, key + ".pt"))[:, lo:hi].to(
+            rows.device)
+        levels = [generic.to_uint8((t + 1.0) / 2.0) for t in (rows, want)]
+        got.update(rows=tuple(rows.shape),
+                   max_abs=float((rows - want).abs().max()),
+                   equal=bool(torch.equal(rows, want)),
+                   u8=u8_diff(*levels),
+                   gathered=digest(spatial.gather_frame(rows, HEIGHT, 4,
+                                                        mesh)))
+        out[key] = got
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def space_phase(smi: str) -> None:
+    """Phase 4i (b) (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    print(f"phase 4i(b) the space axis: a 1080p frame's rows split over "
+          f"{RANKS} ranks over gloo sharing the card, halos exchanged "
+          f"[{smi}]:")
+    one_mesh = make_mesh(device=dev)
+    with tempfile.TemporaryDirectory(prefix="dgt_4i_") as tmp:
+        one = {}
+        for name, dtype in SPACE_CASES:
+            key = f"{name}-{str(dtype).split('.')[1]}"
+            got = space_forward(name, dtype, one_mesh)
+            out = got.pop("out")
+            torch.save(out.cpu(), os.path.join(tmp, key + ".pt"))
+            got["digest"] = digest(out)
+            one[key] = got
+            del out
+            torch.cuda.empty_cache()
+        ranks = run_spawned(_space_rank, (tmp,), SPACE_RUN_S, "4i")
+    for key, o in one.items():
+        rs = [r[key] for r in ranks]
+        f32 = key.endswith("float32")
+        for r, g in enumerate(rs):
+            if g["halo_exchanges"] != o["convs"]:
+                raise AssertionError(f"{key} rank {r}: "
+                                     f"{g['halo_exchanges']} halo exchanges,"
+                                     f" not one a conv ({o['convs']})")
+            if f32 and g["max_abs"] > SPACE_TOL:
+                raise AssertionError(f"{key} rank {r}: max |d| "
+                                     f"{g['max_abs']:.3e} > {SPACE_TOL}")
+            if not f32 and (g["u8"][0] > 1 or g["u8"][1] >= BF16_ENVELOPE):
+                raise AssertionError(f"{key} rank {r}: u8 {g['u8']} outside "
+                                     "the bf16 envelope")
+        if rs[0]["gathered"] != rs[1]["gathered"]:
+            raise AssertionError(f"{key}: the gathered frames differ "
+                                 "between the ranks")
+        agree = ("max |d| " + " / ".join(f"{g['max_abs']:.3e}" for g in rs)
+                 + f" (bound {SPACE_TOL})" if f32 else
+                 "u8 levels " + " / ".join(
+                     f"max {g['u8'][0]} on {g['u8'][1]:.3e}" for g in rs)
+                 + f" (envelope max 1 on < {BF16_ENVELOPE})")
+        print(f"  {key}: rows {rs[0]['rows'][1]} / {rs[1]['rows'][1]} of "
+              f"{4 * HEIGHT} out, each rank against the one-process "
+              f"forward: {agree}; byte-equal "
+              f"{' / '.join(str(g['equal']) for g in rs)}; the gathered "
+              f"frame equal on both ranks (byte-equal to one process: "
+              f"{rs[0]['gathered'] == o['digest']})")
+        print(f"    {rs[0]['halo_exchanges']} halo exchanges a forward "
+              f"({rs[0]['halo_bytes'] / 1e6:.2f} MB of all_reduce buffers a "
+              f"rank); peak memory a rank "
+              + " / ".join(f"{g['peak'] / 2**30:.2f}" for g in rs)
+              + f" GiB against one process's {o['peak'] / 2**30:.2f} GiB ("
+              + " / ".join(f"{g['peak'] / o['peak']:.2f}x" for g in rs)
+              + "); ms a forward (CUDA events, mean of "
+              f"{SPACE_REPEATS}): one process {o['ms']:.2f}, two ranks "
+              "sharing the card " + " / ".join(f"{g['ms']:.2f}" for g in rs)
+              + f" [{smi}]")
+    print(f"  phase 4i(b) took {time.perf_counter() - t0:.1f} s")
 
 
 T0 = time.perf_counter()
@@ -3451,6 +3751,9 @@ def main() -> None:
     hr = training_phase(smi)
     # ---- phase 4h: data parallelism, two ranks sharing the card
     parallel_phase(hr, smi)
+    # ---- phase 4i: a reference .h5 on the card; the space axis
+    h5_phase(smi)
+    space_phase(smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

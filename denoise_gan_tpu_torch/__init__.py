@@ -13,11 +13,14 @@ tiling and the coarse-tail rewrite (``infer/engine.py``, ``infer/tile.py``,
 ``infer/fast.py``) in plain PyTorch; the serving entry points: ``.dgt``
 exports read and written without flax (``io/``), the video, image and
 comparison CLIs (``infer/video.py``, ``infer/image.py``, ``unit_test.py``)
-with an uncompressed RGBA AVI that needs no cv2 (``io/avi.py``); training
+with an uncompressed RGBA AVI that needs no cv2 (``io/avi.py``), and the
+reference's Keras ``.h5`` files read without h5py (``io/hdf5.py``,
+``io/keras_h5.py``); training
 of the four families (``train/``: the joint G+D step, the trainers'
 loop, checkpoints and exports; ``models/discriminators.py``,
 ``models/vgg.py``, ``losses/``, ``ops/jpeg.py``, ``data/``) in plain
-PyTorch; the data-parallel axis over torch.distributed (``parallel/``),
+PyTorch; the data-parallel and space axes over torch.distributed
+(``parallel/``),
 the native image codec (``data/native.py``); and the TPU probes'
 counterparts (``probes/``).
 """

@@ -24,7 +24,9 @@ import torch.nn.functional as F
 
 from denoise_gan_tpu_torch.infer.tile import _feather
 from denoise_gan_tpu_torch.ops.image import depth_to_space
-from denoise_gan_tpu_torch.parallel.mesh import Mesh, gather_rows, row_range
+from denoise_gan_tpu_torch.parallel.mesh import (
+    Mesh, data_only, gather_rows, row_range,
+)
 from denoise_gan_tpu_torch.utils.device import no_tf32, resolve_device
 
 
@@ -153,6 +155,7 @@ def build_frame_engine(forward_coarse: Callable[[torch.Tensor],
     if stitch not in ("feather", "crop"):
         raise ValueError(f"stitch must be 'feather' or 'crop', got "
                          f"{stitch!r}")
+    data_only(mesh, "build_frame_engine")
     dev = resolve_device(device)
     whole = tile <= 0
     crop = stitch == "crop" and not whole

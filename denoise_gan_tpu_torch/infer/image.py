@@ -111,9 +111,9 @@ def build_parser() -> ArgumentParser:
                         help="Directory where to output high res images.")
     parser.add_argument("--model", default="./models/autoencoder.dgt",
                         type=str,
-                        help="Path to a .dgt export (a Keras .h5 is "
-                             "converted first, on a CPU host, with the JAX "
-                             "package's tools/convert_h5.py)")
+                        help="Path to a .dgt export or a reference "
+                             "Keras .h5 (read directly, family "
+                             "auto-detected)")
     parser.add_argument("--input_range", default="unit",
                         choices=("unit", "tanh"),
                         help="unit=[0,1] input (reference quirk), "

@@ -532,9 +532,9 @@ def build_parser() -> ArgumentParser:
                                        "(.avi: uncompressed RGBA, written "
                                        "without cv2; else mp4v by cv2)")
     parser.add_argument("--model", default="./models/fsrgan.dgt", type=str,
-                        help="Path to a .dgt export (a Keras .h5 is "
-                             "converted first, on a CPU host, with the JAX "
-                             "package's tools/convert_h5.py)")
+                        help="Path to a .dgt export or a reference "
+                             "Keras .h5 (read directly, family "
+                             "auto-detected)")
     parser.add_argument("--frame_start", default=0, type=int)
     parser.add_argument("--max_frames", default=0, type=int)
     parser.add_argument("--tile", default=-1, type=int,

@@ -12,10 +12,9 @@ state (train/state.py::GANTrainState.state_dict) as
 ``<dir>/step_<N>.pt``, the newest ``max_to_keep`` kept.  The JAX
 package's Orbax directories are not read.
 
-Not ported: the JAX package's on-the-fly reading of the reference's Keras
-``.h5`` files, which needs h5py: convert such a file on a CPU host with
-the JAX package (``python tools/convert_h5.py --h5 in.h5 --out out.dgt``)
-first.
+The reference's Keras ``.h5`` files are read as the JAX package reads
+them, on the fly: ``load_generator`` and ``read_export`` send an HDF5 file
+to io/keras_h5.py, which reads it without h5py (io/hdf5.py).
 """
 
 from __future__ import annotations
@@ -26,27 +25,26 @@ import re
 
 import torch
 
-from denoise_gan_tpu_torch.io import flax_msgpack
+from denoise_gan_tpu_torch.io import flax_msgpack, keras_h5
 from denoise_gan_tpu_torch.io.params import from_jax_params, to_jax_trees
 from denoise_gan_tpu_torch.models import build_generator
 
 EXPORT_MAGIC = b"DGTPU1\n"
-HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
 
 
 def read_export(path: str) -> tuple[dict, bytes]:
-    """(config dict, raw msgpack payload).  A file that is not an export
-    raises ValueError; an HDF5 file says how to convert it."""
+    """(config dict, raw msgpack payload).  A reference Keras ``.h5`` is
+    converted (io/keras_h5.py::load_h5: its family and role identified
+    from the weight stream) and its trees encoded as an export's payload.
+    Anything else that is not an export raises ValueError."""
+    if keras_h5.is_hdf5(path):
+        config, net = keras_h5.load_h5(path)
+        params, stats = to_jax_trees(net)
+        return config, flax_msgpack.dumps({"params": params,
+                                           "batch_stats": stats})
     with open(path, "rb") as f:
         magic = f.read(len(EXPORT_MAGIC))
         if magic != EXPORT_MAGIC:
-            f.seek(0)
-            if f.read(len(HDF5_MAGIC)) == HDF5_MAGIC:
-                raise ValueError(
-                    f"{path} is an HDF5 (Keras .h5) file; the port reads "
-                    "only .dgt exports. Convert it on a CPU host with the "
-                    "JAX package: python tools/convert_h5.py --h5 <in.h5> "
-                    "--out <out.dgt>")
             raise ValueError(f"{path} is not a denoise_gan_tpu export")
         hlen = int.from_bytes(f.read(8), "little")
         config = json.loads(f.read(hlen))
@@ -58,9 +56,12 @@ def load_generator(path: str, device: torch.device | str = "cuda",
                    dtype: torch.dtype | None = None
                    ) -> tuple[dict, torch.nn.Module]:
     """(config, generator in eval mode on `device`, compute `dtype`) from a
-    ``.dgt`` export.  The card unless the caller asks for the CPU: without
-    a GPU a CUDA request raises RuntimeError.  A discriminator export
-    raises ValueError, as the JAX package's load_generator."""
+    ``.dgt`` export or a reference Keras ``.h5`` (io/keras_h5.py::
+    load_h5_generator).  The card unless the caller asks for the CPU:
+    without a GPU a CUDA request raises RuntimeError.  A discriminator's
+    file raises ValueError, as the JAX package's load_generator."""
+    if keras_h5.is_hdf5(path):
+        return keras_h5.load_h5_generator(path, device=device, dtype=dtype)
     config, payload = read_export(path)
     if config.get("role", "generator") != "generator":
         raise ValueError(f"{path} is a {config['role']} export, "

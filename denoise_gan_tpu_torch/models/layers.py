@@ -20,6 +20,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from denoise_gan_tpu_torch.ops.image import depth_to_space_nchw
+from denoise_gan_tpu_torch.parallel import spatial
 from denoise_gan_tpu_torch.parallel.mesh import (
     GlobalDraw, all_sum_grad, world_size,
 )
@@ -243,6 +244,8 @@ class Conv(nn.Module):
     bias (layers.py:106-117).  Any square kernel and stride; the padding is
     lax's SAME rule (``same_pads``), which pads one more after than before
     where the total is odd, or none at all with ``padding="VALID"``.
+    Under parallel/spatial.py::rows_split H's SAME padding is the
+    neighbouring ranks' rows (zeros only at the frame's top and bottom).
     ``groups=channels`` is the depthwise form; ``use_bias=False`` has no
     ``bias`` parameter at all, as Flax's."""
 
@@ -273,6 +276,10 @@ class Conv(nn.Module):
         (pt, pb), (pl, pr) = ((same_pads(n, k, s) if self.same else (0, 0))
                               for n in x.shape[-2:])
         x = x.to(dt)
+        if (pt or pb) and spatial.active() is not None:
+            # the frame's rows split over the ranks (parallel/spatial.py):
+            # H's padding is the neighbouring ranks' rows
+            x, pt, pb = spatial.halo(x, pt, pb, s), 0, 0
         if (pt, pl) != (pb, pr):
             x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
         y = F.conv2d(x, self.weight.to(dt), stride=s, padding=(pt, pl),

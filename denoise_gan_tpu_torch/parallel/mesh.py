@@ -1,5 +1,5 @@
-"""The ``data`` axis over torch.distributed (denoise_gan_tpu/parallel/
-mesh.py).
+"""The ``data`` and ``space`` axes over torch.distributed
+(denoise_gan_tpu/parallel/mesh.py).
 
 The JAX package runs one process per host over a device mesh and leaves
 the data axis to GSPMD: the global batch split over the devices, the
@@ -20,8 +20,13 @@ one device, and the same pieces are written out over torch.distributed:
   CUDA tensors, so that one code path serves NCCL (one card a rank), gloo
   on the CPU and gloo with ranks sharing a card.
 
-The ``space`` axis (a frame's rows split over devices, with halos) is not
-ported: ``make_mesh(space > 1)`` raises.
+The ``space`` axis shards a frame's rows over the ranks for inference
+(parallel/spatial.py::spatial_apply, each conv's halo rows exchanged with
+the neighbouring ranks).  :func:`make_mesh` lays the ranks out as the JAX
+mesh does, ``(ranks // space, space)``: a rank's data index is ``rank //
+space``, its space index ``rank % space``.  The training step and the
+frame engine split the data axis only, and refuse a mesh whose ``space``
+is not 1 (:func:`data_only`).
 """
 
 from __future__ import annotations
@@ -113,37 +118,52 @@ def init_distributed(backend: str | None = None,
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the 1-D data mesh: `size` ranks, this one's
-    `rank`, its `device`, and the `hosts` they run on (each host runs
-    ``LOCAL_WORLD_SIZE`` ranks; all of them where that is unset)."""
+    """One rank's view of the (data, space) mesh: `size` ranks, this one's
+    `rank`, its `device`, the `hosts` they run on (each host runs
+    ``LOCAL_WORLD_SIZE`` ranks; all of them where that is unset) and the
+    `space` axis' size."""
 
     size: int
     rank: int
     device: torch.device
     hosts: int = 1
+    space: int = 1
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.space
+
+
+def data_only(mesh: "Mesh | None", what: str) -> None:
+    """Refuse a mesh with a space axis where `what` splits the data axis
+    only (NotImplementedError)."""
+    if mesh is not None and mesh.space != 1:
+        raise NotImplementedError(
+            f"{what} splits the data axis only; a mesh with space="
+            f"{mesh.space} shards a frame's rows, which "
+            "parallel/spatial.py::spatial_apply runs")
 
 
 def make_mesh(num_devices: int = 0, space: int = 1,
               device: torch.device | str | None = None) -> Mesh:
-    """The data mesh over every rank of the process group (one rank and
-    `device`, the card by default, without a group).  `num_devices`: 0 for
-    every rank, else it must equal their number (ValueError: a rank drives
-    one device, so a run on N devices is N processes).  `space` must
-    divide the ranks (ValueError, as the JAX mesh); any `space` but 1
-    raises NotImplementedError (the space axis is not ported)."""
+    """The (data, space) mesh over every rank of the process group (one
+    rank and `device`, the card by default, without a group).
+    `num_devices`: 0 for every rank, else it must equal their number
+    (ValueError: a rank drives one device, so a run on N devices is N
+    processes).  `space` must divide the ranks (ValueError, as the JAX
+    mesh; so space > 1 needs a group of as many ranks)."""
     n = world_size()
     if num_devices and num_devices != n:
         raise ValueError(
             f"num_devices={num_devices}, but this run has {n} rank(s): "
             f"launch one process a device (torchrun --nproc_per_node="
             f"{num_devices}) or give 0 for every rank")
-    if n % space:
+    if space < 1 or n % space:
         raise ValueError(f"space={space} does not divide device count {n}")
-    if space != 1:
-        raise NotImplementedError(
-            f"space={space}: the space axis (a frame's rows split over "
-            "devices, with halo exchange) is not ported (ROADMAP A, 'the "
-            "space axis')")
     if n == 1:
         return Mesh(1, 0, resolve_device("cuda" if device is None
                                          else device))
@@ -151,31 +171,55 @@ def make_mesh(num_devices: int = 0, space: int = 1,
     local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
     dev = _DEVICE or rank_device(device, int(os.environ.get("LOCAL_RANK",
                                                             rank)))
-    return Mesh(n, rank, dev, max(1, n // local))
+    return Mesh(n, rank, dev, max(1, n // local), space)
+
+
+def split_range(n: int, index: int, count: int) -> tuple[int, int]:
+    """Part `index`'s [lo, hi) of `n` split into `count` parts as evenly
+    as they go (sizes differ by at most one)."""
+    return index * n // count, (index + 1) * n // count
 
 
 @dataclass(frozen=True)
 class Shard:
     """Axis 0 of a global batch split into `count` equal parts, of which
-    this process holds part `index` (the JAX mesh's P('data'))."""
+    this process holds part `index` (the JAX mesh's P('data')); with
+    `row_count` > 1 also axis 1 (H of NHWC) split into that many parts as
+    evenly as they go (``split_range``), of which it holds `row_index`
+    (P('data', 'space'))."""
 
     index: int = 0
     count: int = 1
+    row_index: int = 0
+    row_count: int = 1
 
     def take(self, x: torch.Tensor) -> torch.Tensor:
-        """This part's rows of the global `x` (ValueError where its rows
-        do not split evenly)."""
+        """This part of the global `x` (ValueError where its rows do not
+        split evenly)."""
         n = x.shape[0]
         if n % self.count:
             raise ValueError(f"a batch of {n} does not split over "
                              f"{self.count} ranks")
         b = n // self.count
-        return x[self.index * b:(self.index + 1) * b]
+        x = x[self.index * b:(self.index + 1) * b]
+        if self.row_count == 1:
+            return x
+        lo, hi = split_range(x.shape[1], self.row_index, self.row_count)
+        return x[:, lo:hi]
 
 
 def batch_sharding(mesh: Mesh) -> Shard:
-    """Batch tensors: axis 0 split over the data axis."""
-    return Shard(mesh.rank, mesh.size)
+    """Batch tensors: axis 0 split over the data axis, H over the space
+    axis (the JAX mesh's P('data', 'space'))."""
+    return Shard(mesh.data_index, mesh.size // mesh.space, mesh.space_index,
+                 mesh.space)
+
+
+def spatial_sharding(mesh: Mesh) -> Shard:
+    """Large-frame inference: H (axis 1 of NHWC) split over every rank, as
+    the JAX package flattens every device onto the space axis; each
+    rank's rows are ``row_range`` of them (parallel/spatial.py)."""
+    return Shard(row_index=mesh.rank, row_count=mesh.size)
 
 
 @dataclass(frozen=True)
@@ -262,20 +306,27 @@ def all_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
-def row_range(n: int, mesh: Mesh) -> tuple[int, int]:
-    """This rank's [lo, hi) of `n` rows split as evenly as they go (part
-    sizes differ by at most one; none is empty where n >= ranks)."""
-    return mesh.rank * n // mesh.size, (mesh.rank + 1) * n // mesh.size
+def row_range(n: int, mesh: Mesh, unit: int = 1) -> tuple[int, int]:
+    """This rank's [lo, hi) of `n` rows split over every rank as evenly as
+    they go (part sizes differ by at most one; none is empty where n >=
+    ranks), in whole `unit`s of rows: ``unit`` times the split of ``n //
+    unit`` (a frame's split rows after a `unit`-times upscale)."""
+    lo, hi = split_range(n // unit, mesh.rank, mesh.size)
+    return lo * unit, hi * unit
 
 
-def gather_rows(local: torch.Tensor, n: int, mesh: Mesh) -> torch.Tensor:
-    """The (n, ...) whole of which every rank holds its ``row_range``
-    rows, on every rank: the rows put into a zeroed buffer, whose bytes
-    are summed over the ranks as uint8 (a byte plus zeros is itself, so
-    the gather is exact in any dtype)."""
+def gather_rows(local: torch.Tensor, n: int, mesh: Mesh, unit: int = 1
+                ) -> torch.Tensor:
+    """The (n, ...) whole of which every rank holds its ``row_range(n,
+    mesh, unit)`` rows, on every rank: the rows put into a zeroed buffer,
+    whose bytes are summed over the ranks as uint8 (a byte plus zeros is
+    itself, so the gather is exact in any dtype)."""
     if mesh.size == 1:
         return local
-    lo, hi = row_range(n, mesh)
+    lo, hi = row_range(n, mesh, unit)
+    if local.shape[0] != hi - lo:
+        raise ValueError(f"rank {mesh.rank} holds {local.shape[0]} rows, "
+                         f"not its {hi - lo} of {n}")
     buf = torch.zeros((n, *local.shape[1:]), dtype=local.dtype,
                       device=local.device)
     buf[lo:hi] = local
@@ -289,6 +340,7 @@ def map_frames(engine: Callable[[torch.Tensor], torch.Tensor],
     batch, each through the rank's own `engine`; no communication (the
     JAX package's shard_map of its kernel engine, tests/test_parallel.py).
     """
+    data_only(mesh, "map_frames")
     return torch.stack([engine(f) for f in shard_batch(frames, mesh)])
 
 

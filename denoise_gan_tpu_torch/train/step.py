@@ -48,7 +48,7 @@ from denoise_gan_tpu_torch.models.vgg import content_features
 from denoise_gan_tpu_torch.ops.image import renorm
 from denoise_gan_tpu_torch.ops.metrics import psnr
 from denoise_gan_tpu_torch.parallel.mesh import (
-    GlobalDraw, Mesh, all_mean, batch_sharding,
+    GlobalDraw, Mesh, all_mean, batch_sharding, data_only,
 )
 from denoise_gan_tpu_torch.train.state import GANTrainState
 from denoise_gan_tpu_torch.utils.config import TrainConfig
@@ -98,6 +98,7 @@ def build_train_step(bundle: ModelBundle, cfg: TrainConfig,
     of PARTS ends (timing; None: not called)."""
     from_logits = not bundle.disc_sigmoid
     family = bundle.name
+    data_only(mesh, "the training step")
     shard = batch_sharding(mesh) if mesh is not None and mesh.size > 1 \
         else None
 

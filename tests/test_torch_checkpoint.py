@@ -14,9 +14,9 @@ io/params.py::to_jax_trees).  The port runs in a child process
 - The port's msgpack encoder writes the bytes flax writes for the same
   tree, and its decoder reads flax's bytes back to equal leaves; a bf16
   leaf loads as its values.
-- Refusals: a discriminator export, a file without the magic, an HDF5
-  file (the message names tools/convert_h5.py), a chunked leaf, and a CUDA
-  request without a GPU.
+- Refusals: a discriminator export, a file without the magic, a truncated
+  HDF5 file (sent to the .h5 reader, whose message names the structure it
+  could not read), a chunked leaf, and a CUDA request without a GPU.
 Flax leaves are drawn with numpy; tree shapes come from jax.eval_shape
 (an eager Flax init costs seconds).
 """
@@ -184,10 +184,12 @@ def test_refusals(port, tmp_path, monkeypatch):
     junk.write_bytes(b"not an export at all")
     assert "is not a denoise_gan_tpu export" in port("load_refusal",
                                                      str(junk))
+    # a truncated HDF5 file goes to the .h5 reader, which names the
+    # structure it could not read
     h5 = tmp_path / "model.h5"
     h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
     message = port("load_refusal", str(h5))
-    assert "HDF5" in message and "tools/convert_h5.py" in message
+    assert "HDF5 structure" in message and "superblock" in message
     # flax chunks a leaf of MAX_CHUNK_SIZE bytes or more
     monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
     chunked = str(tmp_path / "chunked.dgt")

@@ -635,3 +635,62 @@ def test_trainer_runs_on_card_by_default(training, tmp_path):
                                               str(tmp_path))
     assert device.startswith("cuda") and equal and launches == 0
     assert steps == 2
+
+
+# ---------------------------------------------------------------------------
+# a reference Keras .h5 (io/keras_h5.py) and the space axis
+# (parallel/spatial.py) on the card
+
+@pytest.fixture(scope="module")
+def keras_h5(port):
+    """tests/torch_side_keras_h5.py in a child of its own (`port` skips
+    first without a card)."""
+    with torch_process("torch_side_keras_h5") as call:
+        yield call
+
+
+def test_h5_kernel_engines_equal_dgt_on_card(keras_h5, tmp_path):
+    """The FSRGAN kernel engines (w8a8; the plain body, then the K3 body)
+    from tests/data/fsrgan_ref.h5 and from the port converter's .dgt of
+    it, on two seeded 48x70 frames: the same bytes; K1 once a frame, K3
+    six times a frame with the K3 body."""
+    import os
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "fsrgan_ref.h5")
+    rng = np.random.default_rng(3)
+    frames = [rng.random((48, 70, 3)).astype(np.float32) for _ in range(2)]
+    r = keras_h5("cuda_h5_engines_vs_dgt", fixture,
+                 str(tmp_path / "ref.dgt"), 48, 70, 8, frames)
+    print(r)
+    want = {"plain": {"fused_tail_u8:w8a8": 2},
+            "k3": {"fused_tail_u8:w8a8": 2, "fused_mbconv": 12}}
+    for key, got in r.items():
+        assert got["equal"] and got["shape"] == (192, 280, 3), key
+        assert got["std"] > 5
+        assert got["launches"] == (want[key], want[key])
+
+
+@pytest.fixture(scope="module")
+def parallel(port):
+    """tests/torch_side_parallel.py in a child of its own."""
+    with torch_process("torch_side_parallel") as call:
+        yield call
+
+
+def test_space_axis_two_ranks_on_card(parallel):
+    """parallel/spatial.py::spatial_apply on two gloo ranks sharing cuda:0
+    against the plain forward on one process, f32 with TF32 off: within
+    1e-5 (byte-equality printed), one halo exchange a conv wider than 1x1;
+    SRGAN also on an uneven split (45 rows: 22 / 23)."""
+    cases = {"fsrgan": ("fsrgan", 64, 72), "srgan": ("srgan", 45, 40),
+             "autoencoder": ("autoencoder", 64, 96)}
+    exchanges = {"fsrgan": 11, "srgan": 36, "autoencoder": 17}
+    r = parallel("cuda_spatial_two_ranks", cases)
+    for name, ranks in r.items():
+        rows = cases[name][1]
+        for rank, (span, max_d, equal, n, std) in enumerate(ranks):
+            print(f"{name} rank {rank}: rows {span}, max |d| {max_d:.2e}, "
+                  f"byte-equal {equal}")
+            assert span == (rank * rows // 2, (rank + 1) * rows // 2)
+            assert max_d <= 1e-5 and n == exchanges[cases[name][0]]
+            assert std > 0.01

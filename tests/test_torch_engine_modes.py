@@ -1,7 +1,9 @@
 """The engines' qh8 mode and their canvas outputs (infer/kernel_engine.py)
 vs the JAX kernel engines with the same options, their Pallas tails in
-interpret mode, on the same weights and frames.  The port runs in a child
-process (tests/torch_process.py).  Fractions are taken over two frames, the
+interpret mode, on the same weights and frames.  The port runs in two
+child processes (tests/torch_process.py), every engine of it started
+before the JAX engines run here; each JAX engine's frames are computed
+once.  Fractions are taken over two frames, the
 first of which calibrates the int8 modes.
 
 qh8 (``qh8=True``, int8 body output and up1): FSRGAN within the JAX
@@ -27,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_process import skip_without_torch, torch_process
+from torch_process import TIMEOUT_S, skip_without_torch, torch_process
 
 skip_without_torch()
 
@@ -72,7 +74,7 @@ def _reseed(tree, rng, family, path=()):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -96,6 +98,49 @@ def frames():
         out[family] = [rng.random((h, w, 3)).astype(np.float32)
                        for _ in range(2)]
     return out
+
+
+# the engines compared: (family, options) -> (the port's torch_side
+# function, its keyword arguments)
+CASES = {
+    ("fsrgan", "qh8"): ("engine_frames", dict(calib=0, qh8=True)),
+    ("srgan", "qh8"): ("engine_frames", dict(calib=0, qh8=True,
+                                             family="srgan")),
+    ("fsrgan", "k3-qh8"): ("mbconv_engine_frames", dict(calib=0, qh8=True)),
+    **{(family, f"f32-{mode}"): ("engine_frames", dict(
+        calib=0 if mode == "w8a8" else None, out_uint8=False,
+        **({} if family == "fsrgan" else {"family": "srgan"})))
+       for family in ("fsrgan", "srgan") for mode in ("bf16", "w8a8")},
+}
+
+
+@pytest.fixture(scope="module")
+def started(port, weights, frames):
+    """The port's engines of CASES, started in the children at once:
+    {case: future}."""
+    return {(family, opts): port.submit(fn, *weights[family],
+                                        *GEOM[family], frames[family], **kw)
+            for (family, opts), (fn, kw) in CASES.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_frames(started, weights, frames):
+    """Each JAX engine's frames, once: (family, options) -> list (u8 as
+    int32, or the float frames)."""
+    cache = {}
+
+    def get(family, opts):
+        if (family, opts) not in cache:
+            params, stats = weights[family]
+            kw = ({"calib": True, "qh8": True} if opts == "qh8" else
+                  {"calib": opts.endswith("w8a8"), "out_uint8": False})
+            eng = _jax_engine(family, params, stats, frames[family], **kw)
+            cache[(family, opts)] = [
+                _jax_u8(family, eng, f) if opts == "qh8" else
+                np.asarray(eng(jnp.asarray(f))) for f in frames[family]]
+        return cache[(family, opts)]
+
+    return get
 
 
 def _jax_engine(family, params, stats, frames, **kw):
@@ -127,20 +172,17 @@ def _assert_within(d, max_d, over, max_frac):
 
 
 @pytest.mark.parametrize("family", ["fsrgan", "srgan"])
-def test_qh8_engine_matches_jax_engine(port, weights, frames, family):
-    params, stats = weights[family]
-    h, w, brc = GEOM[family]
-    jeng = _jax_engine(family, params, stats, frames[family], calib=True,
-                       qh8=True)
-    outs, launched = port("engine_frames", params, stats, h, w, brc,
-                          frames[family], calib=0, family=family, qh8=True)
+def test_qh8_engine_matches_jax_engine(started, jax_frames, family):
+    h, w, _ = GEOM[family]
+    want = jax_frames(family, "qh8")
+    outs, launched = started[(family, "qh8")].result(TIMEOUT_S)
     entry = "fused_tail_u8" if family == "fsrgan" else "fused_tail64_u8"
     assert launched == {f"{entry}_reference:qh8": 2}
     for got in outs:
         assert got.shape == (h * 4, w * 4, 3) and got.dtype == np.uint8
         assert got.std(axis=(0, 1)).min() > 5
-    d = np.stack([np.abs(got.astype(np.int32) - _jax_u8(family, jeng, f))
-                  for f, got in zip(frames[family], outs)])
+    d = np.stack([np.abs(got.astype(np.int32) - u8)
+                  for u8, got in zip(want, outs)])
     print(f"{family} qh8 engine vs JAX: max {d.max()}, > 1 on "
           f"{(d > 1).mean():.2e}")
     if family == "fsrgan":
@@ -149,19 +191,15 @@ def test_qh8_engine_matches_jax_engine(port, weights, frames, family):
         _assert_within(d, 4, 1, 1e-2)
 
 
-def test_qh8_mbconv_engine_matches_jax_engine(port, weights, frames):
+def test_qh8_mbconv_engine_matches_jax_engine(started, jax_frames):
     """The K3-body FSRGAN engine in qh8 (plain K3 and K1 on the CPU) vs the
     JAX engine (Flax body) in qh8."""
-    params, stats = weights["fsrgan"]
-    h, w, brc = GEOM["fsrgan"]
-    jeng = _jax_engine("fsrgan", params, stats, frames["fsrgan"],
-                       calib=True, qh8=True)
-    outs, launched = port("mbconv_engine_frames", params, stats, h, w, brc,
-                          frames["fsrgan"], calib=0, qh8=True)
+    want = jax_frames("fsrgan", "qh8")
+    outs, launched = started[("fsrgan", "k3-qh8")].result(TIMEOUT_S)
     assert launched == {"fused_mbconv_reference": 12,
                         "fused_tail_u8_reference:qh8": 2}
-    d = np.stack([np.abs(got.astype(np.int32) - _jax_u8("fsrgan", jeng, f))
-                  for f, got in zip(frames["fsrgan"], outs)])
+    d = np.stack([np.abs(got.astype(np.int32) - u8)
+                  for u8, got in zip(want, outs)])
     print(f"K3-body qh8 engine vs JAX: max {d.max()}, > 1 on "
           f"{(d > 1).mean():.2e}")
     _assert_within(d, 3, 1, 1e-2)
@@ -169,21 +207,16 @@ def test_qh8_mbconv_engine_matches_jax_engine(port, weights, frames):
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
 @pytest.mark.parametrize("family", ["fsrgan", "srgan"])
-def test_float_output_engines_match_jax_engine(port, weights, frames, family,
+def test_float_output_engines_match_jax_engine(started, jax_frames, family,
                                                mode):
-    params, stats = weights[family]
-    h, w, brc = GEOM[family]
-    kw = {"out_uint8": False}
+    h, w, _ = GEOM[family]
     q8 = mode == "w8a8"
-    jeng = _jax_engine(family, params, stats, frames[family], calib=q8, **kw)
-    outs, launched = port("engine_frames", params, stats, h, w, brc,
-                          frames[family], calib=0 if q8 else None,
-                          family=family, **kw)
+    wants = jax_frames(family, f"f32-{mode}")
+    outs, launched = started[(family, f"f32-{mode}")].result(TIMEOUT_S)
     entry = "fused_tail" if family == "fsrgan" else "fused_tail64"
     assert launched == {f"{entry}_canvas_reference:{mode}": 2}
     diffs = []
-    for f, got in zip(frames[family], outs):
-        want = np.asarray(jeng(jnp.asarray(f)))
+    for want, got in zip(wants, outs):
         assert got.shape == want.shape == (h * 4, w * 4, 3)
         assert got.dtype == want.dtype == np.float32
         assert got.min() >= 0 and got.max() <= 1

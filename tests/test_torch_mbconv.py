@@ -2,7 +2,9 @@
 kernel's plain version, its wrapper, the K3 body) vs the JAX package's
 Pallas block (tools/exp_mbconv_kernel.py, interpret mode, as
 tests/test_pallas_mbconv.py runs it), the Flax body, and the kernel engine.
-The port runs in a child process (tests/torch_process.py).
+The port runs in child processes (tests/torch_process.py): the kernel
+engine's two runs start with the module, two children of their own, and
+the other tests' port calls go to a third meanwhile.
 
 The TPU kernel zero-pads x, not the expanded tensor, so on the 1-pixel
 ring outside the image its expanded values are relu(be), not 0, and where
@@ -20,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_process import skip_without_torch, torch_process
+from torch_process import TIMEOUT_S, skip_without_torch, torch_process
 
 skip_without_torch()
 
@@ -64,7 +66,7 @@ def _reseed(tree, rng):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=3) as call:
         yield call
 
 
@@ -276,6 +278,17 @@ class _interpreted:
 H, W, BRC = 150, 170, 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def engine_runs(port, engine_weights, engine_frames):
+    """The port's K3-body engine in bf16 and w8a8 (see
+    test_mbconv_engine_matches_jax_engine), started with the module:
+    {mode: future}."""
+    return {mode: port.submit("mbconv_engine_frames", *engine_weights, H, W,
+                              BRC, engine_frames,
+                              calib=0 if mode == "w8a8" else None)
+            for mode in ("bf16", "w8a8")}
+
+
 @pytest.fixture(scope="module")
 def engine_weights():
     v = JGen().init(jax.random.key(0), jnp.zeros((1, 16, 16, 3)),
@@ -310,7 +323,7 @@ def _f32_body_engine(params, stats):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_mbconv_engine_matches_jax_engine(port, engine_weights,
+def test_mbconv_engine_matches_jax_engine(engine_runs, engine_weights,
                                           engine_frames, mode):
     """(e) The whole slice: the port's K3-body engine on the CPU (plain
     block, K1's plain version) vs the JAX kernel engine (Flax body, K1
@@ -333,8 +346,7 @@ def test_mbconv_engine_matches_jax_engine(port, engine_weights,
     jkw = {"q8_calib_frame": jnp.asarray(engine_frames[0])} if q8 else {}
     want = _jax_frames(jke.build_fsrgan_kernel_engine(
         params, stats, H, W, brc=BRC, interpret=True, **jkw), engine_frames)
-    outs, launched = port("mbconv_engine_frames", params, stats, H, W, BRC,
-                          engine_frames, calib=0 if q8 else None)
+    outs, launched = engine_runs[mode].result(TIMEOUT_S)
     assert launched == {"fused_mbconv_reference": 12,
                         f"fused_tail_u8_reference:{mode}": 2}
     for got in outs:

@@ -39,7 +39,8 @@ def _sources():
         REPO / "tests" / "torch_side.py",
         REPO / "tests" / "torch_side_serving.py",
         REPO / "tests" / "torch_side_training.py",
-        REPO / "tests" / "torch_side_parallel.py"]
+        REPO / "tests" / "torch_side_parallel.py",
+        REPO / "tests" / "torch_side_keras_h5.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -52,8 +53,9 @@ def test_no_jax_imports(path):
 
 
 def test_package_runs_without_jax(tmp_path):
-    """Import every module and run the tail twin on the CPU in a process
-    where ``import jax`` fails."""
+    """Import every module, run the tail twin on the CPU and load the
+    reference's Keras .h5 in a process where ``import jax`` and ``import
+    h5py`` fail."""
     code = """
 import sys
 for name in ("jax", "flax", "jaxlib", "denoise_gan_tpu", "msgpack", "cv2",
@@ -88,10 +90,15 @@ for score in ("0", "1"):
                     "--model", "m.dgt", "--device", "cpu", "--score", score,
                     "--kernel_tail", "1"])
     assert r["frames"] == avi.VideoReader("out.avi").frame_count == 3
-assert not any(m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None
-               for m in sys.modules)
+from denoise_gan_tpu_torch.io.checkpoint import load_generator
+config, _ = load_generator(H5, device="cpu")
+assert config["family"] == "fsrgan" and config["source"] == "keras_h5"
+assert not any(m.split(".")[0] in ("jax", "flax", "h5py")
+               and sys.modules[m] is not None for m in sys.modules)
 print("ok")
 """
+    code = code.replace("H5", repr(str(REPO / "tests" / "data" /
+                                       "fsrgan_ref.h5")))
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,

@@ -17,8 +17,9 @@ output than the JAX package's engines on the same weights and frame.  The
 weights of that test are chip_smoke.py's;
 the exact output is chip_smoke.py's (the port's plain bf16 generator on the
 whole frame, edge-padded to 8 rows and 128 columns); the JAX engines run
-their Pallas tails in interpret mode.  The port runs in a child process
-(tests/torch_process.py).
+their Pallas tails in interpret mode.  The port runs in two child
+processes (tests/torch_process.py): every port run is started before the
+JAX package's inits and engines run here.
 
 Measured at 135x240 (brc 27, a seeded u8-representable noise frame),
 share of bytes > 1 level from the exact output, port vs JAX: FSRGAN bf16
@@ -36,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_process import skip_without_torch, torch_process
+from torch_process import TIMEOUT_S, skip_without_torch, torch_process
 
 skip_without_torch()
 
@@ -45,11 +46,12 @@ from denoise_gan_tpu.models.fsrgan import FSRGANGenerator as JGen  # noqa: E402
 from denoise_gan_tpu.models.srgan import SRGANGenerator as JGen64  # noqa: E402
 
 H, W, BRC = 135, 240, 27
+FAMILIES = ("fsrgan", "srgan")
 
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -59,22 +61,56 @@ def _noise_frame():
             .astype(np.float32) / np.float32(255))
 
 
-@pytest.mark.parametrize("source", ["flax", "chip_smoke"])
-@pytest.mark.parametrize("family", ["fsrgan", "srgan"])
-def test_rule_holds_on_jax_init(port, family, source):
-    """source "flax": the generator's Flax init at key 0; "chip_smoke": the
-    same initialisers drawn with numpy, as chip_smoke.py's phase 4d draws
-    them on the card."""
-    if source == "flax":
+@pytest.fixture(scope="module")
+def started(port):
+    """The port's whole-frame runs, started in the children at once
+    (those of numpy-drawn weights first, then those of the Flax inits made
+    here meanwhile): {(source, family): future}; and, run here while they
+    go on, the JAX engines' frames on chip_smoke.py's seeded trees
+    {family: {mode: u8 frame}}."""
+    seeded = {f: port("chip_smoke_trees", f) for f in FAMILIES}
+    futures = {}
+    for family in FAMILIES:
+        for source, trees in (("seeded", seeded[family]), (
+                "chip_smoke", port("chip_smoke_jax_init_trees", family))):
+            futures[(source, family)] = port.submit(
+                "whole_frame_and_engines", *trees, _noise_frame(), BRC,
+                family=family)
+    for family in FAMILIES:
         cls = JGen if family == "fsrgan" else JGen64
         v = cls().init(jax.random.key(0), jnp.zeros((1, 124, 124, 3)),
                        train=False)
-        params = jax.tree_util.tree_map(np.asarray, v["params"])
-        stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
-    else:
-        params, stats = port("chip_smoke_jax_init_trees", family)
-    exact, outs = port("whole_frame_and_engines", params, stats,
-                       _noise_frame(), BRC, family=family)
+        futures[("flax", family)] = port.submit(
+            "whole_frame_and_engines",
+            jax.tree_util.tree_map(np.asarray, v["params"]),
+            jax.tree_util.tree_map(np.asarray, v["batch_stats"]),
+            _noise_frame(), BRC, family=family)
+    return futures, {f: _jax_frames(f, *seeded[f]) for f in FAMILIES}
+
+
+def _jax_frames(family, params, stats):
+    """The JAX engines' u8 frames of the noise frame, bf16, then w8a8 and
+    qh8 calibrated on it, their tails interpreted."""
+    frame = _noise_frame()
+    build = (jke.build_fsrgan_kernel_engine if family == "fsrgan"
+             else jke.build_srgan_kernel_engine)
+    calib = {"q8_calib_frame": jnp.asarray(frame)}
+    out = {}
+    for mode, kw in (("bf16", {}), ("w8a8", calib),
+                     ("qh8", dict(calib, qh8=True))):
+        jeng = build(params, stats, H, W, brc=BRC, interpret=True, **kw)
+        out[mode] = np.asarray(jke.flat_view(
+            jeng(jnp.asarray(frame)), H, W)).reshape(H * 4, W * 4, 3)
+    return out
+
+
+@pytest.mark.parametrize("source", ["flax", "chip_smoke"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_rule_holds_on_jax_init(started, family, source):
+    """source "flax": the generator's Flax init at key 0; "chip_smoke": the
+    same initialisers drawn with numpy, as chip_smoke.py's phase 4d draws
+    them on the card."""
+    exact, outs = started[0][(source, family)].result(TIMEOUT_S)
     d = {m: np.abs(outs[m].astype(np.int32) - exact) for m in outs}
     for m in d:
         print(f"{family} {m} vs exact: max {d[m].max()}, > 1 on "
@@ -89,22 +125,13 @@ def test_rule_holds_on_jax_init(port, family, source):
     assert q.max() <= 2 and (q > 1).mean() < 5e-3
 
 
-@pytest.mark.parametrize("family", ["fsrgan", "srgan"])
-def test_engines_no_farther_from_whole_frame_than_jax(port, family):
-    params, stats = port("chip_smoke_trees", family)
-    frame = _noise_frame()
-    exact, outs = port("whole_frame_and_engines", params, stats, frame, BRC,
-                       family=family)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_engines_no_farther_from_whole_frame_than_jax(started, family):
+    futures, jax_frames = started
+    exact, outs = futures[("seeded", family)].result(TIMEOUT_S)
     assert exact.shape == (H * 4, W * 4, 3) and exact.dtype == np.uint8
-    build = (jke.build_fsrgan_kernel_engine if family == "fsrgan"
-             else jke.build_srgan_kernel_engine)
-    calib = {"q8_calib_frame": jnp.asarray(frame)}
-    for mode, kw in (("bf16", {}), ("w8a8", calib),
-                     ("qh8", dict(calib, qh8=True))):
-        jeng = build(params, stats, H, W, brc=BRC, interpret=True, **kw)
-        want = np.asarray(jke.flat_view(jeng(jnp.asarray(frame)), H, W))
-        d_jax = np.abs(want.reshape(H * 4, W * 4, 3).astype(np.int32)
-                       - exact)
+    for mode, want in jax_frames[family].items():
+        d_jax = np.abs(want.astype(np.int32) - exact)
         d_port = np.abs(outs[mode].astype(np.int32) - exact)
         print(f"{family} {mode} vs exact: port max {d_port.max()} > 1 on "
               f"{(d_port > 1).mean():.5f}, JAX max {d_jax.max()} > 1 on "

@@ -1,8 +1,8 @@
 """The PyTorch half of tests/test_torch_parallel.py, tests/test_torch_plan.py
 and tests/test_torch_native_codec.py: the data-parallel port
-(parallel/mesh.py) on two gloo ranks of the CPU, its random draws, the
-data shards and the dry run; the kernel engines' ``plan``; the native
-codec.
+(parallel/mesh.py) and the space axis (parallel/spatial.py) on two gloo
+ranks of the CPU, its random draws, the data shards and the dry run; the
+kernel engines' ``plan``; the native codec.
 
 tests/torch_process.py runs these functions in a child process
 (``torch_process("torch_side_parallel")``).  The two ranks are processes
@@ -31,11 +31,12 @@ from denoise_gan_tpu_torch.data.degrade import degrade_pair
 from denoise_gan_tpu_torch.infer import engine as tengine
 from denoise_gan_tpu_torch.infer import kernel_engine as tke
 from denoise_gan_tpu_torch.io.params import from_jax_params, to_jax_trees
-from denoise_gan_tpu_torch.models import build_models
+from denoise_gan_tpu_torch.models import build_generator, build_models
 from denoise_gan_tpu_torch.models.layers import Dropout
 from denoise_gan_tpu_torch.models.vgg import VGG19Features
 from denoise_gan_tpu_torch.parallel import dryrun
 from denoise_gan_tpu_torch.parallel import mesh as tmesh
+from denoise_gan_tpu_torch.parallel import spatial
 from denoise_gan_tpu_torch.train.loop import resume_step
 from denoise_gan_tpu_torch.train.state import create_train_state
 from denoise_gan_tpu_torch.train.step import build_train_step
@@ -95,7 +96,8 @@ def _step(family, crop, inputs, mesh):
 
 
 def _mesh_errors(mesh) -> list[str]:
-    """The exception types of make_mesh's refusals under the group."""
+    """The exception types of make_mesh's refusals under the group ("none"
+    where it gives a mesh)."""
     out = []
     for kw in ({"num_devices": 1}, {"num_devices": 3}, {"space": 2},
                {"space": 3}):
@@ -104,6 +106,72 @@ def _mesh_errors(mesh) -> list[str]:
             out.append("none")
         except (ValueError, NotImplementedError) as exc:
             out.append(type(exc).__name__)
+    return out
+
+
+def _net(family, params, stats):
+    """The family's generator on the CPU (eval mode) from Flax trees."""
+    return from_jax_params(build_generator(family, device="cpu"), params,
+                           stats)
+
+
+def _spatial(cases, mesh) -> dict:
+    """Per case (name -> (family, scale, params, stats, NHWC frame)): this
+    rank's parallel/spatial.py::spatial_apply rows of the whole frame, the
+    output gathered (gather_frame) and the halo exchanges of the forward;
+    then the exception types of pix2pix and of an autoencoder frame of 96
+    rows (48 a rank)."""
+    out = {}
+    for name, (family, scale, params, stats, x) in cases.items():
+        n = x.shape[1]
+        lo, hi = tmesh.row_range(n, mesh)
+        spatial.reset_counts()
+        rows = spatial.spatial_apply(_net(family, params, stats),
+                                     _t(x[:, lo:hi]), n, mesh)
+        out[name] = {"rows": rows.numpy(), "range": (lo, hi),
+                     "exchanges": spatial.counts["halo_exchanges"],
+                     "whole": spatial.gather_frame(rows, n, scale,
+                                                   mesh).numpy()}
+    refused = []
+    for family, shape in (("pix2pix", (1, 256, 256, 3)),
+                          ("autoencoder", (1, 96, 64, 3))):
+        lo, hi = tmesh.row_range(shape[1], mesh)
+        try:
+            spatial.spatial_apply(build_generator(family, device="cpu"),
+                                  torch.zeros(shape)[:, lo:hi], shape[1],
+                                  mesh)
+            refused.append("none")
+        except (ValueError, NotImplementedError) as exc:
+            refused.append(type(exc).__name__)
+    out["refused"] = refused
+    return out
+
+
+def spatial_one_process(cases) -> dict:
+    """The port's plain forward of each case (see _spatial) on one
+    process, f32."""
+    out = {}
+    for name, (family, _, params, stats, x) in cases.items():
+        with torch.no_grad():
+            out[name] = _net(family, params, stats)(_t(x)).numpy()
+    return out
+
+
+def mesh_layout(ranks: int, space: int, shape) -> list[tuple]:
+    """For each rank of a (ranks // space, space) mesh: its (data index,
+    space index) and the [lo, hi) of axes 0 and 1 that batch_sharding
+    gives it of a global array of `shape` (read from a tensor of its
+    indices)."""
+    out = []
+    index0 = torch.arange(shape[0]).view(-1, 1).expand(shape[:2])
+    index1 = torch.arange(shape[1]).view(1, -1).expand(shape[:2])
+    for r in range(ranks):
+        mesh = tmesh.Mesh(ranks, r, torch.device("cpu"), space=space)
+        shard = tmesh.batch_sharding(mesh)
+        a, b = shard.take(index0), shard.take(index1)
+        out.append((mesh.data_index, mesh.space_index,
+                    (int(a.min()), int(a.max()) + 1),
+                    (int(b.min()), int(b.max()) + 1)))
     return out
 
 
@@ -138,9 +206,13 @@ def _rank_main(rank: int, store: str, payload: dict, out_dir: str) -> None:
                            rank=rank, world_size=RANKS,
                            timeout_s=RANK_TIMEOUT_S)
     mesh = tmesh.make_mesh(device="cpu")
+    space = tmesh.make_mesh(device="cpu", space=2)
     out = {"mesh": (mesh.size, mesh.rank, str(mesh.device), mesh.hosts),
+           "space_mesh": (space.size, space.rank, space.space,
+                          space.data_index, space.space_index),
            "mesh_errors": _mesh_errors(mesh),
-           "resume": _resume_steps(mesh), "steps": {}}
+           "resume": _resume_steps(mesh), "steps": {},
+           "spatial": _spatial(payload["spatial"], mesh)}
     for family, (crop, inputs) in payload["steps"].items():
         out["steps"][family] = _step(family, crop, inputs, mesh)
 
@@ -165,11 +237,17 @@ def _rank_main(rank: int, store: str, payload: dict, out_dir: str) -> None:
 
 def two_ranks(payload: dict) -> list[dict]:
     """Each rank's results of `payload` (see _rank_main), the ranks spawned
-    on the CPU over gloo; a rank's exception is raised here, and a rank
+    on the CPU over gloo."""
+    return _spawn(_rank_main, payload)
+
+
+def _spawn(target, payload) -> list[dict]:
+    """target(rank, store, payload, out_dir) on RANKS spawned ranks: each
+    rank's pickled result; a rank's exception is raised here, and a rank
     still running after SUITE_TIMEOUT_S is killed."""
     with tempfile.TemporaryDirectory(prefix="dgt_ranks_") as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(os.path.join(tmp, "store"), payload, tmp),
+            target, args=(os.path.join(tmp, "store"), payload, tmp),
             nprocs=RANKS, join=False, start_method="spawn")
         deadline = time.monotonic() + SUITE_TIMEOUT_S
         try:
@@ -305,3 +383,83 @@ def native_codec(paths, rgb, qualities):
             "decode_image": [tpipeline.decode_image(p) for p in paths],
             "decoder": tpipeline.decoder(),
             "library": str(tnative.library_path())}
+
+
+# ---------------------------------------------------------------------------
+# the space axis on the card (tests/test_torch_cuda.py)
+
+
+def _seeded_net(family: str, seed: int, device) -> torch.nn.Module:
+    """The family's generator with every tensor drawn from `seed`: kernels
+    N(0, 1/4 fan_in), biases and BatchNorm means N(0, 0.05^2), scales and
+    variances U(0.8, 1.2) and U(0.5, 1.5), PReLU slopes U(0.05, 0.3)."""
+    net = build_generator(family, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                t.copy_(torch.randn(t.shape, generator=g) * 0.5
+                        / t[0].numel() ** 0.5)
+            elif leaf in ("scale", "var"):
+                lo, hi = (0.8, 1.2) if leaf == "scale" else (0.5, 1.5)
+                t.copy_(torch.rand(t.shape, generator=g) * (hi - lo) + lo)
+            elif leaf == "alpha":
+                t.copy_(torch.rand(t.shape, generator=g) * 0.25 + 0.05)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g) * 0.05)
+    return net.to(device).eval()
+
+
+def _space_frames(cases):
+    return {name: torch.rand((1, rows, cols, 3), generator=torch.Generator(
+        ).manual_seed(i)) * 2 - 1 for i, (name, (_, rows, cols))
+        in enumerate(cases.items())}
+
+
+def _cuda_space_rank(rank: int, store: str, cases: dict, out_dir: str
+                     ) -> None:
+    from denoise_gan_tpu_torch.utils.device import no_tf32
+    tmesh.init_distributed(backend="gloo", device="cuda:0",
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=RANKS, timeout_s=RANK_TIMEOUT_S)
+    mesh = tmesh.make_mesh(device="cuda:0")
+    out = {}
+    for (name, (family, rows, _)), x in zip(cases.items(),
+                                            _space_frames(cases).values()):
+        lo, hi = tmesh.row_range(rows, mesh)
+        spatial.reset_counts()
+        with no_tf32():
+            y = spatial.spatial_apply(_seeded_net(family, 7, mesh.device),
+                                      x[:, lo:hi].to(mesh.device), rows,
+                                      mesh)
+        out[name] = (y.cpu().numpy(), (lo, hi),
+                     spatial.counts["halo_exchanges"])
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def cuda_spatial_two_ranks(cases: dict) -> dict:
+    """On the card: each case (name -> (family, rows, cols)) through
+    parallel/spatial.py::spatial_apply on two gloo ranks sharing cuda:0
+    and through the plain forward on one process, f32 with TF32 off: per
+    case each rank's (rows, max |d| against one process, byte-equal,
+    halo exchanges)."""
+    from denoise_gan_tpu_torch.utils.device import no_tf32
+    ranks = _spawn(_cuda_space_rank, cases)
+    out = {}
+    for (name, (family, _, _)), x in zip(cases.items(),
+                                         _space_frames(cases).values()):
+        with torch.no_grad(), no_tf32():
+            one = _seeded_net(family, 7, "cuda")(x.cuda()).cpu().numpy()
+        scale = one.shape[1] // x.shape[1]
+        got = []
+        for r in ranks:
+            y, (lo, hi), exchanges = r[name]
+            want = one[:, scale * lo:scale * hi]
+            got.append(((lo, hi), float(np.abs(y - want).max()),
+                        bool(np.array_equal(y, want)), exchanges,
+                        float(want.std())))
+        out[name] = got
+    return out
