@@ -303,11 +303,36 @@ Phases, each printed on its own line:
    envelope in u8 levels), one halo exchange a conv wider than 1x1, the
    gathered frame equal on both ranks; printed, each rank's peak memory
    beside the one-process peak, ms a forward and the exchanges' bytes.
+4j. The quality tools (denoise_gan_tpu_torch/tools/, the JAX
+   repository's tools/quality_table.py, evaluate.py and convert_vgg19.py)
+   on the card.  The smoke corpus (16 train, 8 val 288x288 images of
+   quality_table.synth_image, seed 7) under _quality_smoke/ (deleted
+   after); quality_table.run_family for all four families at the smoke
+   budget (one epoch each: FAMILY_CFG's crop, batch, scale and quality;
+   train/loop.py::train, then the held-out split scored at f32 by
+   tools/evaluate.py's scoring), no hand kernel launched, each RESULT's
+   values finite; printed, each RESULT, ms a step after the first (the
+   trainer's StepTimer), peak memory (torch.cuda.max_memory_allocated)
+   and the markdown table, beside the card's name and power limit.  Then
+   phase 4d's quality rule on the table's FSRGAN and SRGAN exports (read
+   back by load_generator; printed only, as on the seeded weights), each
+   engine run's launch counts zeroed just before and read just after:
+   K1 or K2 once a run in its mode (bf16, w8a8, qh8, the u8q8-bgr engine
+   in w8a8), and with the K3 body K3 six times besides.  Then
+   convert_vgg19 on the card, which has no h5py: tests/data/
+   vgg19_notop_narrow.h5 (Keras' notop layout at narrow widths, written
+   by tests/make_vgg19_h5_fixture.py) read by io/hdf5.py, each converted
+   array's sha256 its sidecar's; a full-width torchvision-style state
+   dict written here with torch.save, each converted kernel its OIHW
+   source in HWIO; each .npz loaded by models/vgg.py through
+   VGG19_WEIGHTS, its content features finite.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
    frame vs its plain version and the six plain InvertedResidual modules on
-   cuDNN, and the K3-body engine's frames/s beside the plain-body engine's;
+   cuDNN (K1-K3's library_ms in the kernels line: for K1 and K2 the bf16
+   tail module on cuDNN, for K3 the six modules), and the K3-body
+   engine's frames/s beside the plain-body engine's;
    each beside the card's name and power limit.  K3's build: each
    instantiation's HMMA count in its SASS (the run fails if one counts
    0), registers and spills (ptxas), shared memory and blocks an SM; and
@@ -363,6 +388,11 @@ Phases, each printed on its own line:
 
 Any failure raises, and the run exits non-zero.  The line before the last
 is the kernels' JSON record, the last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py fsrgan=A.dgt srgan=B.dgt   # phase 4d on exports
+
+runs only phase 4d's rule, with its launch counts, on the given exports
+(the quality table's trained ones, say), printing each failed assertion.
 """
 
 from __future__ import annotations
@@ -377,6 +407,7 @@ import math
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -400,7 +431,8 @@ from denoise_gan_tpu_torch.io.checkpoint import export_generator, \
     load_export_into, load_generator
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator, build_models
-from denoise_gan_tpu_torch.models.vgg import init_vgg_params
+from denoise_gan_tpu_torch.models.vgg import (VGG19_CFG, content_features,
+                                              init_vgg_params)
 from denoise_gan_tpu_torch.models.fsrgan import FSRGANTail
 from denoise_gan_tpu_torch.models.srgan import SRGANTail
 from denoise_gan_tpu_torch.ops import _build
@@ -418,6 +450,7 @@ from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
                                           mbpipe, overlap, relayout,
                                           u8_store)
+from denoise_gan_tpu_torch.tools import convert_vgg19, quality_table
 from denoise_gan_tpu_torch.train.state import create_train_state
 from denoise_gan_tpu_torch.train.step import PARTS, build_train_step
 from denoise_gan_tpu_torch.utils import card
@@ -1749,14 +1782,15 @@ def interior(height: int, width: int, cr: int) -> torch.Tensor:
 
 
 def quality_rule(fam: Family, model, height: int, width: int, dev,
-                 weights: str, holds: bool) -> None:
+                 weights: str, holds: bool) -> dict[str, dict[str, int]]:
     """Phase 4d for one family and one weight set: every engine mode against
     the exact whole-frame output on the noise and the structured frame (the
     int8 modes calibrated on the noise frame), over the whole frame and its
     interior; prints the rule of tools/exp_q8_exact.py and the qh8 engine
     against the w8a8 engine, and asserts the bf16 engine on the interior,
     and with `holds` the rule and the qh8 envelope (see the module
-    docstring)."""
+    docstring).  Returns each engine run's launch counts by its label
+    ("<mode> <frame>")."""
     rng = np.random.default_rng(SEED)
     noise_u8 = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
     noise = torch.from_numpy(noise_u8.astype(np.float32)
@@ -1795,15 +1829,28 @@ def quality_rule(fam: Family, model, height: int, width: int, dev,
               f"({float(inside.float().mean()):.3f} of the frame) "
               f"max={inner[label][0]} frac>1={inner[label][1]:.5f}")
 
+    launched = {}
+
+    def run(label, engine, frame):
+        """engine(frame), its launch counts zeroed just before and read
+        just after."""
+        reset_counts()
+        out = engine(frame)
+        torch.cuda.synchronize()
+        launched[label] = fired()
+        return out
+
     for fname, frame in frames.items():
         exact = exact_frame(fam, model, frame)
         for mode, engine in engines.items():
-            score(f"{mode} {fname}", engine(frame), exact)
+            label = f"{mode} {fname}"
+            score(label, run(label, engine, frame), exact)
         if fname == "noise":
             eng = build(u8_input=True, bgr_input=True, bgr=True, **calib)
             bgr_u8 = torch.from_numpy(
                 np.ascontiguousarray(noise_u8[..., ::-1])).to(dev)
-            score("u8q8-bgr noise", eng(bgr_u8), exact.flip(-1))
+            score("u8q8-bgr noise", run("u8q8-bgr noise", eng, bgr_u8),
+                  exact.flip(-1))
     for fname in frames:
         r = {m: rows[f"{m} {fname}"] for m in ("bf16", "w8a8", "qh8")}
         q = [rows[k] for k in rows if k.endswith(fname)
@@ -1833,12 +1880,14 @@ def quality_rule(fam: Family, model, height: int, width: int, dev,
                           f"{b[1]:.3e})")
     if failed:
         raise AssertionError(f"{fam.name} {weights}: " + "; ".join(failed))
+    return launched
 
 
 def times(fam: Family, model, frames, inputs, grid, tails, body,
-          k_eng, t_eng) -> dict[str, tuple[float, float | None]]:
+          k_eng, t_eng) -> dict[str, tuple[float, float | None, float]]:
     """Phase 5 for one family; returns {launch key: (kernel ms, twin ms or
-    None)} for each epilogue and mode."""
+    None, the bf16 tail module's ms on cuDNN)} for each epilogue and
+    mode."""
     ny, nx, cr = grid
     twin_reps = 1 if fam.cin > 32 else 3
     fps_k = engine_fps(k_eng, frames, TIMED_FRAMES)
@@ -1878,7 +1927,7 @@ def times(fam: Family, model, frames, inputs, grid, tails, body,
         cudnn_ms = card.cuda_ms(lambda: cudnn_tail(h), 3)
     print(f"  {fam.name} tail, bf16 {fam.tail_cls.__name__} module on cuDNN "
           f"(no crop, no u8): {cudnn_ms:.2f} ms/frame")
-    return ms
+    return {key: (*v, cudnn_ms) for key, v in ms.items()}
 
 
 def probe_times(dev, smi: str, errs: dict[str, float]) -> list[dict]:
@@ -3666,6 +3715,161 @@ def space_phase(smi: str) -> None:
 T0 = time.perf_counter()
 
 
+# phase 4j: the quality tools' files (deleted after), the smoke corpus's
+# split, and the narrow Keras-layout VGG19 fixture with its sidecar
+QT_DIR = ROOT / "_quality_smoke"
+QT_TRAIN, QT_VAL = 16, 8
+VGG_FIXTURE = ROOT / "tests" / "data" / "vgg19_notop_narrow.h5"
+VGG_SIDECAR = VGG_FIXTURE.with_suffix(".json")
+# torchvision's VGG19 `features` indices of its 16 convs
+TORCHVISION_CONVS = [0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32,
+                     34]
+
+
+def table_rule(fam: Family, export: str, dev) -> None:
+    """Phase 4d's rule on a table export: every mode's engine run launches
+    its family's tail kernel once, in its mode, and the K3-body engine K3
+    six times besides."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, model = load_generator(export, device=dev)
+    launched = quality_rule(fam, model, HEIGHT, WIDTH, dev, "table",
+                            holds=False)
+    for label, got in launched.items():
+        mode = label.split()[0]
+        mode = "w8a8" if mode in ("u8q8-bgr", "K3-body") else mode
+        want = {fam.key(fam.kernel, mode): 1}
+        if label.startswith("K3-body"):
+            want["fused_mbconv"] = 6
+        if got != want:
+            raise AssertionError(f"{fam.name} table {label}: launches "
+                                 f"{got}, not {want}")
+    print(f"  {fam.name} table weights: each engine run launched "
+          f"{fam.kernel.__name__} once in its mode"
+          + (", the K3 body fused_mbconv 6 times" if fam.name == "fsrgan"
+             else "") + f" ({len(launched)} runs)")
+
+
+def vgg_features_finite(npz: str, dev) -> tuple[int, ...]:
+    """models/vgg.py's VGG19 from `npz` through VGG19_WEIGHTS: the shape
+    of content_features of a seeded 64x64 image, which must be finite."""
+    old = os.environ.get("VGG19_WEIGHTS")
+    os.environ["VGG19_WEIGHTS"] = npz
+    try:
+        vgg = init_vgg_params(device=dev)
+    finally:
+        if old is None:
+            del os.environ["VGG19_WEIGHTS"]
+        else:
+            os.environ["VGG19_WEIGHTS"] = old
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) * 2 - 1
+    with torch.no_grad():
+        f = content_features(vgg, x)
+    if not bool(torch.isfinite(f).all()) or float(f.abs().max()) == 0:
+        raise AssertionError(f"{npz}: VGG19 features not finite or all 0")
+    return tuple(f.shape)
+
+
+def vgg_round_trip(dev) -> None:
+    """The converter on the card, which has no h5py: the narrow Keras
+    fixture (each array's sha256 the sidecar's) and a full-width
+    torchvision state dict written here (each array its OIHW source in
+    HWIO), each .npz loaded by models/vgg.py with finite features."""
+    side = json.loads(VGG_SIDECAR.read_text())
+    h5_npz = str(QT_DIR / "vgg_h5.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if convert_vgg19.main(["--h5", str(VGG_FIXTURE), "--out", h5_npz]):
+            raise AssertionError("convert_vgg19 --h5 failed")
+    with np.load(h5_npz) as data:
+        bad = [f"{ours}/{part}" for keras, ours in convert_vgg19.KERAS_NAMES
+               for part in ("kernel", "bias")
+               if hashlib.sha256(np.ascontiguousarray(
+                   data[f"{ours}/{part}"], np.float32).tobytes()
+               ).hexdigest() != side[keras][part]["sha256"]
+               or list(data[f"{ours}/{part}"].shape)
+               != side[keras][part]["shape"]]
+    if bad:
+        raise AssertionError(f"{VGG_FIXTURE.name} -> .npz differs from the "
+                             f"sidecar: {bad[:4]}")
+    shape = vgg_features_finite(h5_npz, dev)
+    print(f"  convert_vgg19 --h5 {VGG_FIXTURE.name} "
+          f"({VGG_FIXTURE.stat().st_size:,} bytes, read by io/hdf5.py): 32 "
+          f"arrays, each sha256 the sidecar's; models/vgg.py's features "
+          f"{shape} finite")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    sd, cin = {}, 3
+    for i, (_, _, width) in zip(TORCHVISION_CONVS, VGG19_CFG):
+        sd[f"features.{i}.weight"] = (torch.randn(
+            width, cin, 3, 3, generator=g, device=dev)
+            * math.sqrt(2 / (9 * cin))).cpu()
+        sd[f"features.{i}.bias"] = torch.zeros(width)
+        cin = width
+    sd["classifier.0.weight"] = torch.zeros(4, cin)
+    pth, pth_npz = str(QT_DIR / "vgg19.pth"), str(QT_DIR / "vgg_pth.npz")
+    torch.save(sd, pth)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if convert_vgg19.main(["--torch", pth, "--out", pth_npz]):
+            raise AssertionError("convert_vgg19 --torch failed")
+    with np.load(pth_npz) as data:
+        for i, (_, ours) in zip(TORCHVISION_CONVS,
+                                convert_vgg19.KERAS_NAMES):
+            w = sd[f"features.{i}.weight"].numpy().transpose(2, 3, 1, 0)
+            if not np.array_equal(data[f"{ours}/kernel"], w):
+                raise AssertionError(f"{ours}: the .pth's kernel in HWIO "
+                                     "differs")
+    shape = vgg_features_finite(pth_npz, dev)
+    print(f"  convert_vgg19 --torch (a full-width torchvision state dict, "
+          f"{os.path.getsize(pth):,} bytes): each kernel its OIHW source in "
+          f"HWIO; models/vgg.py's features {shape} finite")
+
+
+def quality_phase(smi: str) -> None:
+    """Phase 4j (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    print(f"phase 4j the quality tools on the card [{smi}]:")
+    shutil.rmtree(QT_DIR, ignore_errors=True)
+    QT_DIR.mkdir()
+    cwd = os.getcwd()
+    try:
+        os.chdir(QT_DIR)
+        data = str(QT_DIR / "qdata")
+        with contextlib.redirect_stdout(io.StringIO()):
+            quality_table.make_corpus(data, QT_TRAIN, QT_VAL)
+        print(f"  smoke corpus ({QT_TRAIN} train, {QT_VAL} val, 288x288) "
+              f"drawn in {time.perf_counter() - t0:.1f} s")
+        budget = quality_table.budget(smoke=True)
+        rows = {}
+        for family in budget:
+            reset_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                res = quality_table.run_family(family, data, dev, budget)
+            if fired():
+                raise AssertionError(f"run_family {family} launched hand "
+                                     f"kernels: {fired()}")
+            if "RESULT" not in log.getvalue() or not all(math.isfinite(
+                    res[k]) for k in ("psnr_model", "ssim_model",
+                                      "psnr_input", "ssim_input")):
+                raise AssertionError(f"run_family {family}: {res}")
+            rows[family] = res
+            print(f"  RESULT {res}")
+            print(f"    {family}: {res['steps']} steps, "
+                  f"{res['ms_step']} ms a step after the first (crop "
+                  f"{budget[family][0]}, batch {budget[family][1]}), peak "
+                  f"{res['peak_mib']} MiB, train + score "
+                  f"{time.perf_counter() - t1:.1f} s [{smi}]")
+        for line in quality_table.table(list(rows.values())):
+            print(f"  {line}")
+        for fam in FAMILIES:
+            table_rule(fam, rows[fam.name]["export"], dev)
+        vgg_round_trip(dev)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(QT_DIR, ignore_errors=True)
+    print(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -3754,6 +3958,8 @@ def main() -> None:
     # ---- phase 4i: a reference .h5 on the card; the space axis
     h5_phase(smi)
     space_phase(smi)
+    # ---- phase 4j: the quality tools; K1-K3 on the table's weights
+    quality_phase(smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")
@@ -3785,14 +3991,14 @@ def main() -> None:
                 "replaces": fam.replaces, "launches": launches[key],
                 "max_abs_err": errs[key], "ms": ms[key][0],
                 "plain_ms": ms[key][1], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None})
+                "library_ms": ms[key][2]})
     kernels.append({
         "name": "fused_mbconv", "route": "cuda",
         "source": "denoise_gan_tpu_torch/csrc/mbconv.cu",
         "replaces": "tools/exp_mbconv_kernel.py:37",
         "launches": launches3["fused_mbconv"], "max_abs_err": err3,
         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3],
-        "bound_by": k3[4], "library_ms": None})
+        "bound_by": k3[4], "library_ms": k3[2]})
     record = {"kernels": kernels + probes}
     print(f"chip_smoke.py took {time.perf_counter() - T0:.1f} s")
     print(json.dumps(record))
@@ -3801,5 +4007,26 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def rule_on_exports(pairs: list[str]) -> int:
+    """``python3 chip_smoke.py fsrgan=A.dgt srgan=B.dgt``: phase 4d's rule
+    and launch counts (table_rule) on trained exports, each printed in
+    full; a failed assertion is printed and the exit code is 1."""
+    dev = require_cuda()
+    _build.load_library()
+    fams = {f.name: f for f in FAMILIES}
+    print(f"phase 4d's rule on exports [{card.smi('name,power.limit')}]:")
+    failed = 0
+    for pair in pairs:
+        name, path = pair.split("=", 1)
+        try:
+            table_rule(fams[name], path, dev)
+        except AssertionError as exc:
+            print(f"  {name} {path}: {exc}")
+            failed += 1
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        sys.exit(rule_on_exports(sys.argv[1:]))
     main()

@@ -9,7 +9,9 @@ reads (keys ``conv{b}_{c}/kernel`` (HWIO) and ``conv{b}_{c}/bias``, at
 ``VGG19_WEIGHTS`` or ``models/vgg19_notop.npz``); without it, from a
 fixed-seed numpy draw of the port's own (LeCun normal kernels, zero
 biases, numpy seed 42), with the JAX package's warning.  That draw is not
-Flax's, so the tests carry the JAX package's VGG parameters across.
+Flax's, so the tests carry the JAX package's VGG parameters across.  The
+convs' widths are VGG19's unless a file's kernels give others (a narrow
+file, such as the converter's test fixture, builds a narrow net).
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ def _unset(w: torch.Tensor, generator=None) -> None:
 class VGG19Features(nn.Module):
     """The 16 3x3 ReLU convs through block5_conv4 (f32), a 2x2 max pool
     after blocks 1-4.  NHWC in and out; ``conv{b}_{c}.weight`` / ``.bias``
-    mirror the Flax scopes."""
+    mirror the Flax scopes.  `widths`: each conv's filters (VGG19's by
+    default)."""
 
-    def __init__(self):
+    def __init__(self, widths: list[int] | None = None):
         super().__init__()
         cin = 3
-        for block, conv, filters in VGG19_CFG:
+        widths = widths or [f for _, _, f in VGG19_CFG]
+        for (block, conv, _), filters in zip(VGG19_CFG, widths, strict=True):
             setattr(self, f"conv{block}_{conv}",
                     Conv(cin, filters, 3, kernel_init=_unset))
             cin = filters
@@ -98,13 +102,24 @@ def init_vgg_params(weights_path: str | None = None,
                     device: torch.device | str = "cpu") -> VGG19Features:
     """A frozen VGG19Features on `device` (eval mode, no gradients), from
     the ``.npz`` at `weights_path` (default: default_weights_path()) or,
-    without it, from seeded_vgg_params with a warning."""
+    without it, from seeded_vgg_params with a warning.  The file's kernels
+    set the widths; they must chain (3x3, 3 input channels, then each
+    conv's input the last one's filters), else ValueError."""
     path = weights_path or default_weights_path()
+    widths = None
     if os.path.exists(path):
         with np.load(path) as data:
             params = {f"conv{b}_{c}": {
                 "kernel": data[f"conv{b}_{c}/kernel"],
                 "bias": data[f"conv{b}_{c}/bias"]} for b, c, _ in VGG19_CFG}
+        widths, cin = [], 3
+        for name, p in params.items():
+            k = p["kernel"]
+            if k.shape[:3] != (3, 3, cin) or p["bias"].shape != k.shape[3:]:
+                raise ValueError(f"{path}: {name} kernel {k.shape}, bias "
+                                 f"{p['bias'].shape}: not a 3x3 conv of "
+                                 f"{cin} input channels")
+            widths.append(cin := k.shape[3])
     else:
         msg = (
             f"VGG19 weights not found at '{path}' — the perceptual/content "
@@ -116,7 +131,7 @@ def init_vgg_params(weights_path: str | None = None,
         warnings.warn(msg, stacklevel=2)
         print(f"WARNING: {msg}")
         params = seeded_vgg_params()
-    model = from_jax_params(VGG19Features(), params).to(device).eval()
+    model = from_jax_params(VGG19Features(widths), params).to(device).eval()
     return model.requires_grad_(False)
 
 

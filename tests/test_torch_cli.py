@@ -1,9 +1,10 @@
 """The port's video CLI (denoise_gan_tpu_torch/infer/video.py) against
 the JAX package's (denoise_gan_tpu/infer/video.py) on the same RGBA AVI
-and the same ``.dgt`` exports.  The port runs in a child process
-(tests/torch_process.py) with ``--device cpu``; the JAX CLI reads the
-file through cv2, and its written frames are taken from a recorder put in
-place of cv2.VideoWriter in this process.
+and the same ``.dgt`` exports.  The port runs in two child processes
+(tests/torch_process.py) with ``--device cpu``, every run of it started
+before the JAX CLI runs here; the JAX CLI reads the file through cv2, and
+its written frames are taken from a recorder put in place of
+cv2.VideoWriter in this process.
 
 Files (tests/serving_files.py): 5 frames of 48x64 (the autoencoder, 1x)
 and of 100x150 (FSRGAN 4x); weights drawn with numpy.  The JAX CLI's
@@ -92,7 +93,7 @@ def jax_cli(monkeypatch):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process("torch_side_serving") as call:
+    with torch_process("torch_side_serving", workers=2) as call:
         yield call
 
 
@@ -102,16 +103,47 @@ def _argv(files, family, flags, score, out):
             "--output_video", out, *flags]
 
 
+# (id, family, CLI flags, engine note) of the cv2-writer cases
+CV2_CASES = [
+    ("crop", "autoencoder", PATHS[2][2], "torch-crop (32/8), bgr out"),
+    ("coarse", "fsrgan", PATHS[3][2], "torch-crop coarse (64/4);")]
+
+
+@pytest.fixture(scope="module")
+def started(port, files, tmp_path_factory):
+    """The port's CLI runs, started in the children at once, in the order
+    the tests read them: {case: future}."""
+    out_dir = tmp_path_factory.mktemp("port_out")
+    cpu = ["--device", "cpu"]
+    runs = {}
+    for name, family, flags, _ in PATHS:
+        for score in (0, 1):
+            runs[(name, score)] = port.submit("video_cli", _argv(
+                files, family, flags, score,
+                str(out_dir / f"{name}{score}.avi")) + cpu)
+    runs["choice-1x"] = port.submit("video_cli", _argv(
+        files, "autoencoder", ["--kernel_tail", "1", "--max_frames", "1"], 0,
+        str(out_dir / "a.avi")) + cpu)
+    runs["choice-4x"] = port.submit("video_cli", _argv(
+        files, "fsrgan", ["--max_frames", "1"], 0,
+        str(out_dir / "f.avi")) + cpu)
+    for name, family, flags, _ in CV2_CASES:
+        flags = [*flags, "--max_frames", "2", *cpu]
+        runs[("avi", name)] = port.submit("video_cli", _argv(
+            files, family, flags, 0, str(out_dir / f"o_{name}.avi")))
+        runs[("cv2", name)] = port.submit("video_cli_cv2", _argv(
+            files, family, flags, 0, str(out_dir / f"o_{name}.mp4")))
+    return runs
+
+
 @pytest.mark.parametrize("score", [0, 1], ids=["unscored", "scored"])
 @pytest.mark.parametrize("name,family,flags,bound", PATHS,
                          ids=[p[0] for p in PATHS])
-def test_video_cli_matches_jax(port, jax_cli, files, tmp_path, name, family,
-                               flags, bound, score):
+def test_video_cli_matches_jax(started, jax_cli, files, tmp_path, name,
+                               family, flags, bound, score):
     want, want_frames = jax_cli(_argv(files, family, flags, score,
                                       str(tmp_path / "jax.mp4")))
-    got, text, got_frames = port("video_cli", _argv(
-        files, family, flags, score, str(tmp_path / "port.avi")) +
-        ["--device", "cpu"])
+    got, text, got_frames = started[(name, score)].result()
     assert "engine:" in text and f"processed {sf.FRAMES} frames" in text
     assert got["frames"] == want["frames"] == sf.FRAMES
     sf.envelope(f"{name} score={score}", got_frames, want_frames, bound)
@@ -125,38 +157,29 @@ def test_video_cli_matches_jax(port, jax_cli, files, tmp_path, name, family,
         assert got["psnr"] is None and want["psnr"] is None
 
 
-def test_engine_choice_notes(port, files, tmp_path):
+def test_engine_choice_notes(started):
     """The auto tile geometry (autoencoder 128/8), the --kernel_tail 1
     note on a 1x family, and the upscaler's kernel engine off by default on
     the CPU (the coarse engine at FSRGAN's 144/4)."""
-    _, text, _ = port("video_cli", _argv(
-        files, "autoencoder", ["--kernel_tail", "1", "--max_frames", "1"], 0,
-        str(tmp_path / "a.avi")) + ["--device", "cpu"])
+    _, text, _ = started["choice-1x"].result()
     assert "engine: torch-crop (128/8); scoring off" in text
     assert "--kernel_tail 1 ignored" in text
-    _, text, frames = port("video_cli", _argv(
-        files, "fsrgan", ["--max_frames", "1"], 0,
-        str(tmp_path / "f.avi")) + ["--device", "cpu"])
+    _, text, frames = started["choice-4x"].result()
     assert "engine: torch-crop coarse (144/4)" in text
     assert frames.shape == (1, 400, 600, 3)
 
 
-@pytest.mark.parametrize("name,family,flags,engine", [
-    ("crop", "autoencoder", PATHS[2][2], "torch-crop (32/8), bgr out"),
-    ("coarse", "fsrgan", PATHS[3][2], "torch-crop coarse (64/4);")],
-    ids=["crop", "coarse"])
-def test_cv2_writer_gets_the_avi_frames(port, files, tmp_path, name, family,
-                                        flags, engine):
+@pytest.mark.parametrize("name,family,flags,engine", CV2_CASES,
+                         ids=["crop", "coarse"])
+def test_cv2_writer_gets_the_avi_frames(started, name, family, flags,
+                                        engine):
     """A non-.avi output goes to cv2.VideoWriter as BGR: the 1x crop
     engine emits BGR itself, the coarse engine's RGB is flipped on the
     device.  Its frames equal the RGBA AVI's read back as BGR (for the
     AVI the engines emit RGB), byte for byte."""
-    flags = [*flags, "--max_frames", "2", "--device", "cpu"]
-    _, text, want = port("video_cli", _argv(files, family, flags, 0,
-                                            str(tmp_path / "o.avi")))
+    _, text, want = started[("avi", name)].result()
     assert "bgr out" not in text
-    text, got = port("video_cli_cv2", _argv(files, family, flags, 0,
-                                            str(tmp_path / "o.mp4")))
+    text, got = started[("cv2", name)].result()
     assert f"engine: {engine}" in text
     assert got.shape == want.shape and got.shape[0] == 2
     np.testing.assert_array_equal(got, want)

@@ -15,7 +15,9 @@ The port runs in a child process (tests/torch_process.py).
   of 5): its PSNR and SSIM equal the JAX package's psnr and ssim of the
   frame it wrote against the JAX package's bicubic upscale of the input,
   within 0.05 dB and 1e-3.
-Files: tests/serving_files.py (FSRGAN, 5 frames of 100x150).
+Files: tests/serving_files.py (FSRGAN, 5 frames of 100x150).  Every run of
+the port is started at once in three child processes; the direct engine
+run that two tests compare with is made once.
 """
 
 import numpy as np
@@ -44,7 +46,7 @@ def files(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process("torch_side_serving") as call:
+    with torch_process("torch_side_serving", workers=3) as call:
         yield call
 
 
@@ -55,42 +57,66 @@ def _argv(files, flags, score, out):
             *flags]
 
 
-@pytest.mark.parametrize("q8,frame_start", [(-1, 0), (2, 1)],
-                         ids=["w8a8", "qh8-from-1"])
-def test_kernel_engine_path_equals_engine(port, files, tmp_path, q8,
-                                          frame_start):
-    model, video = files
+# (q8, frame_start) of the unscored AVI cases
+UNSCORED = [(-1, 0), (2, 1)]
+
+
+def _calib_at(frame_start):
+    """The JAX CLI's calibration frames from `frame_start`."""
     span = sf.FRAMES - frame_start
-    calib_at = sorted({frame_start + span * k // 4 for k in range(4)})
-    _, text, got = port("video_cli", _argv(
-        files, ["--q8", str(q8), "--frame_start", str(frame_start)], 0,
-        str(tmp_path / "k.avi")))
+    return sorted({frame_start + span * k // 4 for k in range(4)})
+
+
+@pytest.fixture(scope="module")
+def started(port, files, tmp_path_factory):
+    """The port's runs, started in the children at once, in the order the
+    tests read them: {case: future}.  ("direct", -1, 0), w8a8 from frame
+    0, is the engine both the w8a8 AVI and the cv2 output are held to."""
+    out_dir = tmp_path_factory.mktemp("port_out")
+    model, video = files
+    runs = {}
+    for q8, start in UNSCORED:
+        runs[("cli", q8, start)] = port.submit("video_cli", _argv(
+            files, ["--q8", str(q8), "--frame_start", str(start)], 0,
+            str(out_dir / f"k{q8}_{start}.avi")))
+        runs[("direct", q8, start)] = port.submit(
+            "kernel_engine_direct", model, video, start, _calib_at(start),
+            qh8=q8 == 2)
+    runs["cv2"] = port.submit("video_cli_cv2", _argv(
+        files, ["--max_frames", "2"], 0, str(out_dir / "k.mp4")))
+    runs["scored"] = port.submit("video_cli", _argv(
+        files, [], 1, str(out_dir / "scored.avi")))
+    return runs
+
+
+@pytest.mark.parametrize("q8,frame_start", UNSCORED,
+                         ids=["w8a8", "qh8-from-1"])
+def test_kernel_engine_path_equals_engine(started, q8, frame_start):
+    span = sf.FRAMES - frame_start
+    _, text, got = started[("cli", q8, frame_start)].result()
     tail = "w8a8+h8 tail" if q8 == 2 else "w8a8 tail"
     assert f"engine: fused-kernel (fsrgan 4x, {tail}, u8/bgr in; fixed" \
         in text
-    want = port("kernel_engine_direct", model, video, frame_start,
-                calib_at, qh8=q8 == 2)
+    want = started[("direct", q8, frame_start)].result()
     assert got.shape == want.shape == (span, 400, 600, 3)
     np.testing.assert_array_equal(got, want)
 
 
-def test_kernel_engine_bgr_out_for_cv2(port, files, tmp_path):
+def test_kernel_engine_bgr_out_for_cv2(started):
     """A non-.avi output: the kernel engine emits BGR bytes for
     cv2.VideoWriter (replaced by a recorder), the frames the AVI holds."""
-    model, video = files
-    text, got = port("video_cli_cv2", _argv(
-        files, ["--max_frames", "2"], 0, str(tmp_path / "k.mp4")))
+    assert _calib_at(0) == [0, 1, 2, 3]
+    text, got = started["cv2"].result()
     assert "engine: fused-kernel (fsrgan 4x, w8a8 tail, u8/bgr in, bgr " \
         "out; fixed" in text
-    want = port("kernel_engine_direct", model, video, 0, [0, 1, 2, 3])
+    want = started[("direct", -1, 0)].result()
     assert got.shape == (2, 400, 600, 3)
     np.testing.assert_array_equal(got, want[:2])
 
 
-def test_kernel_engine_scores_every_8th_frame(port, files, tmp_path):
-    model, video = files
-    got, text, frames = port("video_cli", _argv(files, [], 1,
-                                                str(tmp_path / "k.avi")))
+def test_kernel_engine_scores_every_8th_frame(started, files):
+    _, video = files
+    got, text, frames = started["scored"].result()
     assert "fused-kernel (fsrgan 4x, w8a8 tail; fixed" in text
     assert "scoring every 8th frame" in text and got["scored_frames"] == 1
     r = avi.VideoReader(video)

@@ -49,7 +49,9 @@ widened to its BatchNorms' conditioning); the autoencoder's
 discriminator half, card against CPU on the same inputs, to the full
 rule; train-mode BatchNorm, the JPEG
 round trip and the degradation card against CPU; the FSRGAN trainer's
-main on the card by default, its exports read back equal.
+main on the card by default, its exports read back equal.  The quality
+table's run_family (plain PyTorch, no hand kernel) on the card by default
+for one step.
 The canvas epilogue (the bf16 tanh that the u8 epilogue rounds) is held to
 the same: equal in the int8 modes, and in bf16 apart by at most
 2**-8 (one bf16 ulp at the top of tanh's range: one rounding apart) on
@@ -694,3 +696,26 @@ def test_space_axis_two_ranks_on_card(parallel):
             assert span == (rank * rows // 2, (rank + 1) * rows // 2)
             assert max_d <= 1e-5 and n == exchanges[cases[name][0]]
             assert std > 0.01
+
+
+# ---------------------------------------------------------------------------
+# the quality table (denoise_gan_tpu_torch/tools/quality_table.py)
+
+@pytest.fixture(scope="module")
+def quality(port):
+    """tests/torch_side_quality.py in a child of its own (`port` skips
+    first without a card)."""
+    with torch_process("torch_side_quality") as call:
+        yield call
+
+
+def test_quality_table_family_on_card_by_default(quality, tmp_path):
+    """run_family without a device trains the autoencoder on the card for
+    one step and scores its export: finite values, a peak memory reading,
+    the export read back onto the card; no hand kernel launched."""
+    res, device, launches = quality("cuda_run_family", str(tmp_path))
+    print(res)
+    assert device.startswith("cuda") and launches == 0
+    assert res["steps"] == 1 and res["peak_mib"] > 0
+    for k in ("psnr_model", "ssim_model", "psnr_input", "ssim_input"):
+        assert np.isfinite(res[k]), k

@@ -1,7 +1,8 @@
 """The whole slice: the port's FSRGAN kernel engine (pad, tiles, bf16 body,
 fused tail twin on the CPU, u8 frame) vs the JAX kernel engine with its
 Pallas tail in interpret mode, on the same weights and frames.  The port
-runs in a child process (tests/torch_process.py).
+runs in two child processes (tests/torch_process.py), every engine of it
+started before the JAX engines run here.
 
 Envelopes as tests/test_torch_tail.py: bf16 max |diff| <= 1 on < 1e-3 of
 the bytes; w8a8 max <= 2, > 1 on < 5e-3.
@@ -46,7 +47,7 @@ def _reseed(tree, rng):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -63,26 +64,57 @@ def frames():
     return [rng.random((H, W, 3)).astype(np.float32) for _ in range(2)]
 
 
+def _bgr_u8(frames):
+    """The decoder's BGR uint8 frames of the RGB float frames."""
+    return [np.ascontiguousarray(np.round(f * 255).astype(np.uint8)[..., ::-1])
+            for f in frames]
+
+
+@pytest.fixture(scope="module")
+def started(port, weights, frames):
+    """The port's engines, started in the children at once: {case: future
+    of engine_frames' (frames, launch counts)}.  ``rgb`` (the first frame,
+    bf16) serves both tests that compare an option with the RGB engine."""
+    run = lambda *a, **kw: port.submit("engine_frames", *weights, H, W, BRC,
+                                       *a, **kw)
+    calib = {"bf16": None, "w8a8": 0}
+    out = {mode: run(frames, calib=c) for mode, c in calib.items()}
+    out["rgb"] = run(frames[:1])
+    out["bgr"] = run(frames[:1], bgr=True)
+    for mode, c in calib.items():
+        out[f"options-{mode}"] = run(_bgr_u8(frames), calib=c, u8_input=True,
+                                     bgr_input=True, calib_frames=frames)
+    out["bgr_input"] = run([np.ascontiguousarray(frames[0][..., ::-1])],
+                           bgr_input=True)
+    out["samples"] = port.submit("body_samples", *weights, H, W, BRC, frames)
+    return out
+
+
+def _jax_engine_frames(weights, frames, mode, ins=None, **kw):
+    """The JAX kernel engine's u8 frames (H*4, W*4, 3) of `ins` (default
+    `frames`), w8a8 calibrated on the RGB float frames[0]."""
+    params, stats = weights
+    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if mode == "w8a8" else {}
+    jeng = jke.build_fsrgan_kernel_engine(params, stats, H, W, brc=BRC,
+                                          interpret=True, **jkw, **kw)
+    return [np.asarray(jke.flat_view(jeng(jnp.asarray(f)), H, W)).reshape(
+        H * 4, W * 4, 3) for f in (frames if ins is None else ins)]
+
+
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_engine_matches_jax_engine(port, weights, frames, mode):
+def test_engine_matches_jax_engine(started, weights, frames, mode):
     """Both frames through both engines (w8a8 calibrated on the first).
     The fraction is taken over the two frames: the bf16 body rounds
     differently in XLA and PyTorch in ~0.2% of its outputs, which alone
     flips 0.04-0.12% of a frame's bytes by one level (ROADMAP.md C)."""
-    params, stats = weights
     q8 = mode == "w8a8"
-    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if q8 else {}
-    jeng = jke.build_fsrgan_kernel_engine(params, stats, H, W, brc=BRC,
-                                          interpret=True, **jkw)
-    outs, _ = port("engine_frames", params, stats, H, W, BRC, frames,
-                   calib=0 if q8 else None)
+    wants = _jax_engine_frames(weights, frames, mode)
+    outs, _ = started[mode].result()
     diffs = []
-    for frame, got in zip(frames, outs):
-        want = np.asarray(jke.flat_view(jeng(jnp.asarray(frame)), H, W))
+    for want, got in zip(wants, outs):
         assert got.shape == (600, 680, 3) and got.dtype == np.uint8
         assert got.std(axis=(0, 1)).min() > 5
-        diffs.append(np.abs(got.astype(np.int32)
-                            - want.reshape(H * 4, W * 4, 3).astype(np.int32)))
+        diffs.append(np.abs(got.astype(np.int32) - want.astype(np.int32)))
     d = np.stack(diffs)
     if q8:
         assert d.max() <= 2 and (d > 1).mean() < 5e-3, (d.max(),
@@ -92,14 +124,11 @@ def test_engine_matches_jax_engine(port, weights, frames, mode):
                                                         (d > 0).mean())
 
 
-def test_engine_bgr_and_tail_choice(port, weights, frames):
+def test_engine_bgr_and_tail_choice(started):
     """bgr flips the channels; the engine on the CPU reaches the tail twin
     through the wrapper, never the kernel."""
-    params, stats = weights
-    (rgb,), n_rgb = port("engine_frames", params, stats, H, W, BRC,
-                         frames[:1])
-    (bgr,), n_bgr = port("engine_frames", params, stats, H, W, BRC,
-                         frames[:1], bgr=True)
+    (rgb,), n_rgb = started["rgb"].result()
+    (bgr,), n_bgr = started["bgr"].result()
     np.testing.assert_array_equal(bgr, rgb[..., ::-1])
     for launched in (n_rgb, n_bgr):
         assert launched == {"fused_tail_u8_reference:bf16": 1}
@@ -142,7 +171,7 @@ def test_engine_tiles_equal_jax(port, frames, kind):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_engine_input_options_match_jax(port, weights, frames, mode):
+def test_engine_input_options_match_jax(started, weights, frames, mode):
     """u8_input + bgr_input: the decoder's BGR uint8 frames through both
     engines (w8a8 calibrated on the first RGB float frame, which each
     flips); the fraction is taken over the two frames.  The tiles are equal
@@ -151,21 +180,12 @@ def test_engine_input_options_match_jax(port, weights, frames, mode):
     differ by 1 in bf16 at these seeds (float frames: 6.6e-4).  So bf16 takes
     the JAX package's own bound for this input option, max <= 1 on < 2%
     (tests/test_pallas_tail.py:139-140)."""
-    params, stats = weights
     q8 = mode == "w8a8"
-    bgr_u8 = [np.ascontiguousarray(
-        np.round(f * 255).astype(np.uint8)[..., ::-1]) for f in frames]
-    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if q8 else {}
-    jeng = jke.build_fsrgan_kernel_engine(params, stats, H, W, brc=BRC,
-                                          interpret=True, u8_input=True,
-                                          bgr_input=True, **jkw)
-    outs, _ = port("engine_frames", params, stats, H, W, BRC, bgr_u8,
-                   calib=0 if q8 else None, u8_input=True, bgr_input=True,
-                   calib_frames=frames)
-    d = np.stack([np.abs(
-        got.astype(np.int32) - np.asarray(jke.flat_view(
-            jeng(jnp.asarray(f)), H, W)).reshape(H * 4, W * 4, 3))
-        for f, got in zip(bgr_u8, outs)])
+    wants = _jax_engine_frames(weights, frames, mode, _bgr_u8(frames),
+                               u8_input=True, bgr_input=True)
+    outs, _ = started[f"options-{mode}"].result()
+    d = np.stack([np.abs(got.astype(np.int32) - want.astype(np.int32))
+                  for want, got in zip(wants, outs)])
     if q8:
         assert d.max() <= 2 and (d > 1).mean() < 5e-3, (d.max(),
                                                         (d > 1).mean())
@@ -174,14 +194,12 @@ def test_engine_input_options_match_jax(port, weights, frames, mode):
                                                         (d > 0).mean())
 
 
-def test_engine_bgr_input_is_rgb_engine(port, weights, frames):
+def test_engine_bgr_input_is_rgb_engine(started):
     """The bgr_input engine on a BGR frame is the RGB engine on the RGB
     frame, within the bf16 envelope (the stem sums its input channels in
     another order)."""
-    (rgb,), _ = port("engine_frames", *weights, H, W, BRC, frames[:1])
-    (bgr,), _ = port("engine_frames", *weights, H, W, BRC,
-                     [np.ascontiguousarray(frames[0][..., ::-1])],
-                     bgr_input=True)
+    (rgb,), _ = started["rgb"].result()
+    (bgr,), _ = started["bgr_input"].result()
     d = np.abs(rgb.astype(np.int32) - bgr.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
@@ -191,12 +209,12 @@ def test_engine_rejects_wrong_frame_shape(port, weights):
         port("engine_wrong_frame", *weights, H, W, BRC)
 
 
-def test_body_sample_is_leading_tiles(port, weights, frames):
+def test_body_sample_is_leading_tiles(port, started):
     """Calibration sample = body output of the first 16 tiles, split across
     frames, as the JAX _body_sample takes it."""
     ny, nx, cr = jke.plan_grid(H, W, BRC)
     assert port("plan_grid", H, W, BRC) == (ny, nx, cr)
-    one, two = port("body_samples", *weights, H, W, BRC, frames)
+    one, two = started["samples"].result()
     assert ny * nx == 14
     assert one.shape == (14, cr + 4, 124, 32)           # all 14 tiles
     assert two.shape == (16, cr + 4, 124, 32)           # 8 per frame

@@ -65,7 +65,7 @@ def _reseed(tree, rng, path=()):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -80,6 +80,46 @@ def weights():
 def frames():
     rng = np.random.default_rng(11)
     return [rng.random((H, W, 3)).astype(np.float32) for _ in range(2)]
+
+
+def _bgr_u8(frames):
+    """The decoder's BGR uint8 frames of the RGB float frames."""
+    return [np.ascontiguousarray(np.round(f * 255).astype(np.uint8)[..., ::-1])
+            for f in frames]
+
+
+@pytest.fixture(scope="module")
+def started(port, weights, frames):
+    """The port's engines, started in the children at once: {case:
+    future of engine_frames' (frames, launch counts)}.  ``bf16`` is also
+    the RGB engine that test_srgan_engine_bgr_input_is_rgb_engine holds
+    its BGR-input engine to (its first frame)."""
+    params, stats = weights
+    run = lambda *a, **kw: port.submit("engine_frames", params, stats, H, W,
+                                       BRC, *a, family="srgan", **kw)
+    calib = {"bf16": None, "w8a8": 0}
+    out = {mode: run(frames, calib=c) for mode, c in calib.items()}
+    for mode, c in calib.items():
+        out[f"options-{mode}"] = run(_bgr_u8(frames), calib=c, u8_input=True,
+                                     bgr_input=True, calib_frames=frames)
+    out["bgr_input"] = run([np.ascontiguousarray(frames[0][..., ::-1])],
+                           bgr_input=True)
+    return out
+
+
+def _jax_frames(weights, frames, mode, options):
+    """The JAX engine's frames: w8a8 calibrated on the RGB float frames[0];
+    with `options` (u8_input + bgr_input) on the decoder's BGR uint8
+    frames."""
+    params, stats = weights
+    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if mode == "w8a8" else {}
+    ins = frames
+    if options:
+        jkw.update(u8_input=True, bgr_input=True)
+        ins = _bgr_u8(frames)
+    jeng = jke.build_srgan_kernel_engine(params, stats, H, W, brc=BRC,
+                                         interpret=True, **jkw)
+    return [jeng(jnp.asarray(f)) for f in ins]
 
 
 def _diff(got, want5):
@@ -98,53 +138,36 @@ def _within(d, q8):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_srgan_engine_matches_jax_engine(port, weights, frames, mode):
+def test_srgan_engine_matches_jax_engine(started, weights, frames, mode):
     """Both frames through both engines (w8a8 calibrated on the first);
     the fraction is taken over the two frames, as the FSRGAN test does."""
-    params, stats = weights
-    q8 = mode == "w8a8"
-    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if q8 else {}
-    jeng = jke.build_srgan_kernel_engine(params, stats, H, W, brc=BRC,
-                                         interpret=True, **jkw)
-    outs, launched = port("engine_frames", params, stats, H, W, BRC, frames,
-                          calib=0 if q8 else None, family="srgan")
+    want = _jax_frames(weights, frames, mode, False)
+    outs, launched = started[mode].result()
     assert launched == {f"fused_tail64_u8_reference:{mode}": 2}
     for got in outs:
         assert got.std(axis=(0, 1)).min() > 5
-    _within(np.stack([_diff(got, jeng(jnp.asarray(f)))
-                      for f, got in zip(frames, outs)]), q8)
+    _within(np.stack([_diff(got, w) for w, got in zip(want, outs)]),
+            mode == "w8a8")
 
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_srgan_engine_input_options_match_jax(port, weights, frames, mode):
+def test_srgan_engine_input_options_match_jax(started, weights, frames,
+                                              mode):
     """u8_input + bgr_input: the decoder's BGR uint8 frames through both
     engines (calibrated on the first RGB float frame, which each flips)."""
-    params, stats = weights
-    q8 = mode == "w8a8"
-    bgr_u8 = [np.ascontiguousarray(
-        np.round(f * 255).astype(np.uint8)[..., ::-1]) for f in frames]
-    jkw = {"q8_calib_frame": jnp.asarray(frames[0])} if q8 else {}
-    jeng = jke.build_srgan_kernel_engine(params, stats, H, W, brc=BRC,
-                                         interpret=True, u8_input=True,
-                                         bgr_input=True, **jkw)
-    outs, _ = port("engine_frames", params, stats, H, W, BRC, bgr_u8,
-                   calib=0 if q8 else None, family="srgan", u8_input=True,
-                   bgr_input=True, calib_frames=frames)
-    _within(np.stack([_diff(got, jeng(jnp.asarray(f)))
-                      for f, got in zip(bgr_u8, outs)]), q8)
+    want = _jax_frames(weights, frames, mode, True)
+    outs, _ = started[f"options-{mode}"].result()
+    _within(np.stack([_diff(got, w) for w, got in zip(want, outs)]),
+            mode == "w8a8")
 
 
-def test_srgan_engine_bgr_input_is_rgb_engine(port, weights, frames):
+def test_srgan_engine_bgr_input_is_rgb_engine(started):
     """The bgr_input engine on a BGR frame is the RGB engine on the RGB
     frame: the stem sums its input channels in another order, which the
     body carries on as above.  Bound: the JAX package's own for this input
     option, max <= 1 on < 2% (tests/test_pallas_tail.py:139-140; measured
     1.2e-3)."""
-    params, stats = weights
-    (rgb,), _ = port("engine_frames", params, stats, H, W, BRC, frames[:1],
-                     family="srgan")
-    bgr_frame = np.ascontiguousarray(frames[0][..., ::-1])
-    (bgr,), _ = port("engine_frames", params, stats, H, W, BRC, [bgr_frame],
-                     family="srgan", bgr_input=True)
+    rgb = started["bf16"].result()[0][0]
+    (bgr,), _ = started["bgr_input"].result()
     d = np.abs(rgb.astype(np.int32) - bgr.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() < 2e-2, (d.max(), (d > 0).mean())

@@ -40,7 +40,8 @@ def _sources():
         REPO / "tests" / "torch_side_serving.py",
         REPO / "tests" / "torch_side_training.py",
         REPO / "tests" / "torch_side_parallel.py",
-        REPO / "tests" / "torch_side_keras_h5.py"]
+        REPO / "tests" / "torch_side_keras_h5.py",
+        REPO / "tests" / "torch_side_quality.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -1,7 +1,8 @@
 """The fused tails' qh8 mode and canvas epilogue (ops/tail.py,
 ops/tail_srgan.py) vs the JAX package's Pallas tails, run in interpret mode
 as tests/test_pallas_tail.py runs them, for both families.  The port runs
-in a child process (tests/torch_process.py).
+in two child processes (tests/torch_process.py), every twin of it started
+before the JAX tails run here.
 
 qh8: the body output h reaches the tail as int8, one step size per channel
 (calibrate_h_scales), and up1 sums int8 x int8 with the step sizes folded
@@ -70,7 +71,7 @@ def _reseed(tree, rng, kernels):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -87,6 +88,34 @@ def setups():
             (NY * NX, CR + 4, jtail.T, cin)) * 0.5
         hj = jnp.asarray(h, jnp.bfloat16)
         out[family] = (params, hj, np.asarray(hj.astype(jnp.float32)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def started(port, setups):
+    """The port's twins, started in the children at once, in the order the
+    tests read them: {(test, family, mode): future of twin's (frame,
+    q8)}."""
+    out = {}
+    full = (NY, NX, NY * CR, NX * jtail.CORE)
+    ragged = (NY, NX, NY * CR - 5, NX * jtail.CORE - 7)
+    for family in FAMILIES:
+        params, _, hf = setups[family]
+        out[("qh8", family, "qh8")] = port.submit(
+            "twin", params, hf, *full, family=family, mode="qh8")
+    for family in FAMILIES:
+        params, _, hf = setups[family]
+        for mode in MODES:
+            out[("canvas", family, mode)] = port.submit(
+                "twin", params, hf, *full, family=family, mode=mode,
+                canvas=True)
+    for family in FAMILIES:
+        params, _, hf = setups[family]
+        for mode in MODES:
+            for canvas in (False, True):
+                out[("ragged", family, mode, canvas)] = port.submit(
+                    "twin", params, hf, *ragged, family=family, mode=mode,
+                    canvas=canvas)
     return out
 
 
@@ -177,11 +206,10 @@ def test_quantize_h_equals_make_h3_q8(port, setups, family):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_qh8_twin_matches_jax_kernel(port, setups, family):
-    params, hj, hf = setups[family]
+def test_qh8_twin_matches_jax_kernel(started, setups, family):
+    params, hj, _ = setups[family]
     want = _jax_u8(family, params, hj, "qh8")
-    got, q8 = port("twin", params, hf, NY, NX, NY * CR, NX * jtail.CORE,
-                   family=family, mode="qh8")
+    got, q8 = started[("qh8", family, "qh8")].result()
     assert q8 and got.shape == want.shape and got.dtype == np.uint8
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     print(f"{family} qh8 u8: max {d.max()}, bytes differing "
@@ -196,11 +224,10 @@ def test_qh8_twin_matches_jax_kernel(port, setups, family):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("family", FAMILIES)
-def test_canvas_twin_matches_jax_kernel(port, setups, family, mode):
-    params, hj, hf = setups[family]
+def test_canvas_twin_matches_jax_kernel(started, setups, family, mode):
+    params, hj, _ = setups[family]
     want = _jax_canvas(family, params, hj, mode)
-    got, _ = port("twin", params, hf, NY, NX, NY * CR, NX * jtail.CORE,
-                  family=family, mode=mode, canvas=True)
+    got, _ = started[("canvas", family, mode)].result()
     assert got.shape == want.shape == (NY * CR * 4, NX * jtail.CORE * 4, 3)
     frac = (got != want).mean()
     dmax = np.abs(got - want).max()
@@ -216,16 +243,13 @@ def test_canvas_twin_matches_jax_kernel(port, setups, family, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("family", FAMILIES)
-def test_u8_epilogue_is_canvas_with_engine_steps(port, setups, family,
-                                                 mode):
+def test_u8_epilogue_is_canvas_with_engine_steps(started, family, mode):
     """The port's u8 epilogue vs its canvas followed by the engine's u8
     steps, trunc(clip((x + 1) / 2, 0, 1) * 255 + 0.5): the JAX package's
     bound for the same pair, max 1 on < 1e-3 (test_pallas_tail.py:214-218;
     the kernel rounds (x + 1) * 127.5 + 0.5, the steps twice more)."""
-    params, _, hf = setups[family]
-    args = (params, hf, NY, NX, NY * CR - 5, NX * jtail.CORE - 7)
-    u8, _ = port("twin", *args, family=family, mode=mode)
-    canvas, _ = port("twin", *args, family=family, mode=mode, canvas=True)
+    u8, _ = started[("ragged", family, mode, False)].result()
+    canvas, _ = started[("ragged", family, mode, True)].result()
     d = np.abs(u8.astype(np.int32) - _engine_u8(canvas))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 

@@ -1,7 +1,8 @@
 """Port SRGAN fused tail (ops/tail_srgan.py: weight prep, calibration, the
 CUDA kernel's plain twin and its wrapper) vs the JAX package's Pallas SRGAN
 tail, run in interpret mode as tests/test_pallas_tail_srgan.py runs it.  The
-port runs in a child process (tests/torch_process.py).
+port runs in two child processes (tests/torch_process.py), its twins
+started before the JAX tails run here.
 
 On the u8 output, both modes: max |diff| <= 1 on < 1e-3 of the bytes,
 tighter than the JAX package's w8a8 envelope (max <= 2, > 1 on < 5e-3).
@@ -51,7 +52,7 @@ def _reseed(tree, rng):
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process() as call:
+    with torch_process(workers=2) as call:
         yield call
 
 
@@ -68,6 +69,26 @@ def h_tiles():
     h = rng.standard_normal((NY * NX, CR + 4, jtail.T, CIN)) * 0.5
     hj = jnp.asarray(h, jnp.bfloat16)
     return hj, np.asarray(hj.astype(jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def started(port, tail_params, h_tiles):
+    """The port's twin runs, started in the children at once: {case:
+    future}.  ``bf16`` (the whole grid) is also the frame whose crop
+    test_twin_crops_ragged_frame takes."""
+    _, hf = h_tiles
+    grid = (NY, NX, NY * CR, NX * jtail.CORE)
+    ragged = (NY, NX, NY * CR - 5, NX * jtail.CORE - 7)
+    twin = lambda *a, **kw: port.submit("twin", tail_params, hf, *a,
+                                        family="srgan", **kw)
+    return {
+        "bf16": twin(*grid, q8=False), "w8a8": twin(*grid, q8=True),
+        "rgb": twin(*ragged), "bgr": twin(*ragged, bgr=True),
+        "part": twin(NY, NX, 17, 130),
+        "wrapper": port.submit("wrapper_on_cpu", tail_params, hf, *grid,
+                               family="srgan"),
+        "exact_sum": port.submit("exact_sum_up1", NY, NX, CR),
+        "orders": port.submit("exact_sum_twin_orders", NY, NX, CR)}
 
 
 def _u8_diff(got, want):
@@ -113,15 +134,14 @@ def test_calibrate_tail_scales_matches_jax(port, tail_params, h_tiles):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "w8a8"])
-def test_twin_matches_jax_kernel(port, tail_params, h_tiles, mode):
-    hj, hf = h_tiles
+def test_twin_matches_jax_kernel(started, tail_params, h_tiles, mode):
+    hj, _ = h_tiles
     q8 = mode == "w8a8"
     kw = {"q8_calib": hj.astype(jnp.float32)} if q8 else {}
     run = jts.build_fused_tail64_u8(tail_params, NY, NX, brc=BRC,
                                     core_rows=CR, interpret=True, **kw)
     want = np.asarray(run(hj)).reshape(NY * CR * 4, NX * jtail.CORE * 4, 3)
-    got, got_q8 = port("twin", tail_params, hf, NY, NX, NY * CR,
-                       NX * jtail.CORE, q8=q8, family="srgan")
+    got, got_q8 = started[mode].result()
     assert got_q8 == q8
     assert got.shape == want.shape and got.dtype == np.uint8
     dmax, frac0 = _u8_diff(got, want)
@@ -129,28 +149,22 @@ def test_twin_matches_jax_kernel(port, tail_params, h_tiles, mode):
     assert got.std(axis=(0, 1)).min() > 5      # not a constant image
 
 
-def test_twin_bgr_is_channel_flip(port, tail_params, h_tiles):
-    _, hf = h_tiles
-    args = (tail_params, hf, NY, NX, NY * CR - 5, NX * jtail.CORE - 7)
-    rgb, _ = port("twin", *args, family="srgan")
-    bgr, _ = port("twin", *args, bgr=True, family="srgan")
+def test_twin_bgr_is_channel_flip(started):
+    rgb, _ = started["rgb"].result()
+    bgr, _ = started["bgr"].result()
     assert rgb.shape == (4 * (NY * CR - 5), 4 * (NX * jtail.CORE - 7), 3)
     np.testing.assert_array_equal(bgr, rgb[..., ::-1])
 
 
-def test_twin_crops_ragged_frame(port, tail_params, h_tiles):
+def test_twin_crops_ragged_frame(started):
     """A frame smaller than the grid is the top-left crop of the full one."""
-    _, hf = h_tiles
-    full, _ = port("twin", tail_params, hf, NY, NX, NY * CR, NX * jtail.CORE,
-                   family="srgan")
-    part, _ = port("twin", tail_params, hf, NY, NX, 17, 130, family="srgan")
+    full, _ = started["bf16"].result()
+    part, _ = started["part"].result()
     np.testing.assert_array_equal(part, full[:68, :520])
 
 
-def test_wrapper_on_cpu_runs_twin(port, tail_params, h_tiles):
-    _, hf = h_tiles
-    got, want, launched = port("wrapper_on_cpu", tail_params, hf, NY, NX,
-                               NY * CR, NX * jtail.CORE, family="srgan")
+def test_wrapper_on_cpu_runs_twin(started):
+    got, want, launched = started["wrapper"].result()
     np.testing.assert_array_equal(got, want)
     assert launched == {"fused_tail64_u8_reference:bf16": 2}
 
@@ -178,23 +192,22 @@ def test_prepare_tail64_rejects_other_tails(port, family, scale):
         port("prepare_tail64_of", family, scale)
 
 
-def test_exact_sum_inputs_sum_exactly(port):
+def test_exact_sum_inputs_sum_exactly(started):
     """On ops/tail_srgan.py's dyadic grid every f32 partial sum of up1 is
     exact, so the twin's sums equal the float64 sums rounded once (and any
     order, the tensor cores' included, gives them); on N(0, 0.25) h the
     same comparison differs, so the test can tell."""
-    got = port("exact_sum_up1", NY, NX, CR)
+    got = started["exact_sum"].result()
     n_diff, top = got["dyadic"]
     assert n_diff == 0 and top < 2 ** 9, got
     assert got["gaussian"][0] > 0, got
 
 
-def test_w8a8_twin_ignores_up1_order_on_exact_sums(port):
+def test_w8a8_twin_ignores_up1_order_on_exact_sums(started):
     """The w8a8 twin's frame on exact-sum inputs does not change when up1
     sums its taps in reverse: the input on which the kernel's w8a8 is held
     byte for byte to the twin (tests/test_torch_cuda.py) earns its name."""
-    frame, reversed_frame, std_min = port("exact_sum_twin_orders", NY, NX,
-                                          CR)
+    frame, reversed_frame, std_min = started["orders"].result()
     assert frame.shape == (4 * NY * CR, 4 * NX * jtail.CORE, 3)
     np.testing.assert_array_equal(frame, reversed_frame)
     assert std_min > 5                         # not a constant image

@@ -7,9 +7,11 @@ restores to an equal state; a warm start of the port from the JAX
 package's exports; the autoencoder for an epoch (SRGAN, bf16, and
 pix2pix, whose crop is 256, train through their CLIs on the card:
 chip_smoke.py phase 4g); the refusals (a CUDA run without a GPU,
---num_devices 2).  The port runs in a child
-process (tests/torch_process.py).
+--num_devices 2).  The port runs in three child processes
+(tests/torch_process.py), every run of it started at once.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +33,7 @@ FSRGAN_ARGV = ["--device", "cpu", "--image_dir", "data", "--epochs", "2",
 
 @pytest.fixture(scope="module")
 def port():
-    with torch_process("torch_side_training") as call:
+    with torch_process("torch_side_training", workers=3) as call:
         yield call
 
 
@@ -68,11 +70,53 @@ def assert_trees_equal(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@functools.lru_cache(maxsize=None)
+def fsrgan_templates():
+    return templates("fsrgan", 32)
+
+
+def warm_start_trees():
+    """Seeded generator and discriminator trees of FSRGAN."""
+    rng = np.random.default_rng(4)
+    (gp, gs), (dp, ds) = fsrgan_templates()
+    return (draw(gp, rng), draw(gs, rng)), (draw(dp, rng), draw(ds, rng))
+
+
+# (family, crop, images) of test_other_trainers_run
+OTHER = [("autoencoder", 32, 2)]
+
+
 @pytest.fixture(scope="module")
-def fsrgan_run(port, tmp_path_factory):
+def started(port, tmp_path_factory):
+    """The port's runs, started in the children at once, in the order the
+    tests read them: {case: (work directory, future)}."""
+    runs = {}
     root = tmp_path_factory.mktemp("train")
     seed_images(root, 4, 40)
-    return root, port("trainer_cli", str(root), FSRGAN_ARGV)
+    runs["fsrgan"] = root, port.submit("trainer_cli", str(root), FSRGAN_ARGV)
+
+    root = tmp_path_factory.mktemp("warm")
+    name = "fsrgan_4x_50q"
+    gen, disc = warm_start_trees()
+    jck.export_net(str(root / "models" / f"{name}.dgt"), "fsrgan", 4, *gen)
+    jck.export_net(str(root / "models" / f"{name}_disc.dgt"), "fsrgan", 4,
+                   *disc, role="discriminator")
+    runs["warm"] = root, port.submit("warm_start", str(root), "fsrgan", name,
+                                     gen, disc)
+    for family, crop, images in OTHER:
+        root = tmp_path_factory.mktemp(family)
+        seed_images(root, images, crop)
+        argv = ["--device", "cpu", "--image_dir", "data", "--batch_size",
+                "1", "--crop_size", str(crop), "--data_workers", "1"]
+        runs[family] = root, port.submit("trainer_cli", str(root), argv,
+                                         family)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def fsrgan_run(started):
+    root, future = started["fsrgan"]
+    return root, future.result()
 
 
 def test_fsrgan_trainer_runs(fsrgan_run):
@@ -90,7 +134,7 @@ def test_jax_reads_the_port_exports(fsrgan_run):
     models/<name>.dgt and <name>_disc.dgt back equal to the final state."""
     root, out = fsrgan_run
     name = "fsrgan_4x_50q"
-    (gp, gs), (dp, ds) = templates("fsrgan", 32)
+    (gp, gs), (dp, ds) = fsrgan_templates()
     for path, role, (p, s), want in (
             (f"models/{name}.dgt", "generator", (gp, gs), out["gen"]),
             (f"models/{name}_disc.dgt", "discriminator", (dp, ds),
@@ -117,30 +161,17 @@ def test_port_reads_its_exports_and_checkpoint(fsrgan_run):
                                                    "discriminator"]
 
 
-def test_port_warm_starts_from_jax_exports(port, tmp_path):
+def test_port_warm_starts_from_jax_exports(started):
     """--retrain with no checkpoint loads models/<name>.dgt and
     <name>_disc.dgt written by the JAX package's export_net."""
-    rng = np.random.default_rng(4)
-    (gp, gs), (dp, ds) = templates("fsrgan", 32)
-    gen = (draw(gp, rng), draw(gs, rng))
-    disc = (draw(dp, rng), draw(ds, rng))
-    name = "fsrgan_4x_50q"
-    jck.export_net(str(tmp_path / "models" / f"{name}.dgt"), "fsrgan", 4,
-                   *gen)
-    jck.export_net(str(tmp_path / "models" / f"{name}_disc.dgt"), "fsrgan",
-                   4, *disc, role="discriminator")
-    assert port("warm_start", str(tmp_path), "fsrgan", name, gen,
-                disc) == ([], [])
+    assert started["warm"][1].result() == ([], [])
 
 
-@pytest.mark.parametrize("family, crop, images", [("autoencoder", 32, 2)])
-def test_other_trainers_run(port, tmp_path, family, crop, images):
+@pytest.mark.parametrize("family, crop, images", OTHER)
+def test_other_trainers_run(started, family, crop, images):
     """One epoch of the family at its own defaults writes both exports,
     which read back equal to the final state."""
-    seed_images(tmp_path, images, crop)
-    argv = ["--device", "cpu", "--image_dir", "data", "--batch_size", "1",
-            "--crop_size", str(crop), "--data_workers", "1"]
-    out = port("trainer_cli", str(tmp_path), argv, family)
+    out = started[family][1].result()
     assert out["export_diff"] == ([], [])
     assert out["restore"][2] == images
     line = [l for l in out["stdout"].splitlines() if "Starting epoch" in l]

@@ -43,8 +43,6 @@ from denoise_gan_tpu_torch.utils import config as tconfig
 from denoise_gan_tpu_torch.utils.device import exact_f32, no_tf32
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
-# the child shares the machine with the suite's other workers
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
