@@ -326,6 +326,23 @@ Phases, each printed on its own line:
    dict written here with torch.save, each converted kernel its OIHW
    source in HWIO; each .npz loaded by models/vgg.py through
    VGG19_WEIGHTS, its content features finite.
+4k. The reverse interop and the engine profiles (denoise_gan_tpu_torch/
+   tools/export_h5.py, tools/profile_engine.py; the JAX repository's
+   tools/export_h5.py, smoke_h5_tpu.py and profile_engine.py).  (a)
+   tests/data/fsrgan_ref.h5 through the port's converter to a .dgt and
+   back through export_h5 to a .h5, read by io/hdf5.py: each dataset's
+   path, shape and sha256 its sidecar's, layer_names the fixture's.  (b)
+   The seeded full-width FSRGAN and SRGAN .dgt exports, each exported to
+   a .h5 here; the video CLI on a seeded 2-frame 1080p RGBA AVI with
+   --model the .h5, then the .dgt, counts zeroed just before each run and
+   read just after: K1 (or K2) once a frame in w8a8, the frames
+   byte-equal; read_export of the .h5 (the port's converter) gives trees
+   bit-equal to the .dgt's.  (c) profile_engine for six frames at 1080p
+   on the seeded weights: FSRGAN w8a8 (plain body), FSRGAN w8a8 with the
+   K3 body, FSRGAN qh8, SRGAN w8a8: each table printed (ms per frame,
+   count, name of the device events), K1's or K2's row six times in the
+   trace, K3's 36 times with the K3 body; printed beside the card's name
+   and power limit, the phase's time.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -406,6 +423,7 @@ import json
 import math
 import os
 import pickle
+import re
 import shutil
 import sys
 import tempfile
@@ -426,9 +444,9 @@ from denoise_gan_tpu_torch.infer.fast import build_fast_coarse, \
 from denoise_gan_tpu_torch.io import avi
 from denoise_gan_tpu_torch.data import native, pipeline
 from denoise_gan_tpu_torch.data.degrade import degrade_pair
-from denoise_gan_tpu_torch.io import hdf5, keras_h5
+from denoise_gan_tpu_torch.io import flax_msgpack, hdf5, keras_h5
 from denoise_gan_tpu_torch.io.checkpoint import export_generator, \
-    load_export_into, load_generator
+    load_export_into, load_generator, read_export
 from denoise_gan_tpu_torch.io.params import from_jax_params
 from denoise_gan_tpu_torch.models import build_generator, build_models
 from denoise_gan_tpu_torch.models.vgg import (VGG19_CFG, content_features,
@@ -450,7 +468,8 @@ from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
                                           mbpipe, overlap, relayout,
                                           u8_store)
-from denoise_gan_tpu_torch.tools import convert_vgg19, quality_table
+from denoise_gan_tpu_torch.tools import (convert_vgg19, export_h5,
+                                         profile_engine, quality_table)
 from denoise_gan_tpu_torch.train.state import create_train_state
 from denoise_gan_tpu_torch.train.step import PARTS, build_train_step
 from denoise_gan_tpu_torch.utils import card
@@ -3870,6 +3889,157 @@ def quality_phase(smi: str) -> None:
     print(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: the reverse interop and the engine profiles
+
+EXPORT_DIR = ROOT / "_export_smoke"     # the phase's files (deleted after)
+EXPORT_FRAMES = 2
+PROFILE_FRAMES = 6
+PROFILES = (("fsrgan", "q8", "plain"), ("fsrgan", "q8", "k3"),
+            ("fsrgan", "qh8", "plain"), ("srgan", "q8", "plain"))
+K3_BLOCKS = 6                           # K3 launches a frame (its body)
+
+
+def fixture_export(directory: Path) -> None:
+    """(a): the fixture -> the port's converter -> .dgt -> export_h5 ->
+    .h5, read by io/hdf5.py against the fixture's sidecar."""
+    dgt, h5 = directory / "fixture.dgt", directory / "fixture.h5"
+    with contextlib.redirect_stdout(io.StringIO()):
+        keras_h5.main(["--h5", str(H5_FIXTURE), "--out", str(dgt)])
+    t0 = time.perf_counter()
+    export_h5.export_h5(str(dgt), str(h5))
+    ms = (time.perf_counter() - t0) * 1e3
+    side = json.loads(H5_SIDECAR.read_text())
+    written = hdf5.File(str(h5))
+    found = h5_datasets(written)
+    want = {d["path"]: d for d in side["datasets"]}
+    bad = [p for p, d in want.items()
+           if p not in found or list(found[p].shape) != d["shape"]
+           or hashlib.sha256(np.ascontiguousarray(found[p][()], np.float32)
+                             .tobytes()).hexdigest() != d["sha256"]]
+    if bad or set(found) != set(want):
+        raise AssertionError(f"export_h5 of the fixture's .dgt: "
+                             f"{len(found)} datasets, the sidecar "
+                             f"{len(want)}; differing {bad[:4]}, extra "
+                             f"{sorted(set(found) - set(want))[:4]}")
+    names = [keras_h5.attr_list(f["model_weights"].attrs, "layer_names")
+             for f in (written, hdf5.File(str(H5_FIXTURE)))]
+    if names[0] != names[1]:
+        raise AssertionError("export_h5's layer_names are not the "
+                             "fixture's")
+    print(f"  {H5_FIXTURE.name} -> the port's converter -> .dgt -> "
+          f"export_h5 ({ms:.1f} ms, {h5.stat().st_size:,} bytes): "
+          f"{len(found)} datasets, each one's path, shape and sha256 the "
+          f"sidecar's; {len(names[0])} layer_names the fixture's")
+
+
+def tree_bytes(payload: bytes) -> dict:
+    """{path: (dtype, shape, bytes)} of an export payload's trees."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                a = np.asarray(v)
+                out[prefix + k] = (a.dtype.str, a.shape, a.tobytes())
+
+    walk(flax_msgpack.loads(payload), "")
+    return out
+
+
+def export_cli(models: dict, directory: Path) -> None:
+    """(b): the seeded FSRGAN and SRGAN exports to .h5, the video CLI on
+    each .h5 and .dgt, the .h5 read back."""
+    rng = np.random.default_rng(SEED + 19)
+    frames = [np.ascontiguousarray((seeded_frame(
+        rng, HEIGHT, WIDTH, "cpu").numpy() * 255 + 0.5).astype(
+            np.uint8)[..., ::-1]) for _ in range(EXPORT_FRAMES)]
+    video = str(directory / "in.avi")
+    writer = avi.VideoWriter(video, 25.0, (WIDTH, HEIGHT))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    for fam in FAMILIES:
+        dgt = str(directory / f"{fam.name}.dgt")
+        export_generator(dgt, fam.name, 4, models[fam.name])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            export_h5.main(["--dgt", dgt])
+        ms = (time.perf_counter() - t0) * 1e3
+        h5 = dgt[:-len(".dgt")] + ".h5"
+        print(f"  {log.getvalue().strip()} in {ms:.1f} ms "
+              f"({os.path.getsize(h5):,} bytes)")
+        got = {}
+        for name, path in (("h5", h5), ("dgt", dgt)):
+            argv = ["--input_video", video, "--output_video",
+                    str(directory / f"{fam.name}_{name}.avi"), "--model",
+                    path, "--score", "0"]
+            _, got[name] = run_cli(
+                f"video CLI --model {Path(path).name} (kernel engine w8a8)",
+                argv, {fam.key(fam.kernel, "w8a8"): EXPORT_FRAMES})
+        if len(got["h5"]) != EXPORT_FRAMES or any(
+                not np.array_equal(a, b) for a, b in zip(got["h5"],
+                                                         got["dgt"])):
+            raise AssertionError(f"{fam.name}: the CLI's frames from the "
+                                 "exported .h5 and the .dgt differ")
+        back = tree_bytes(read_export(h5)[1])
+        if back != tree_bytes(read_export(dgt)[1]):
+            raise AssertionError(f"{fam.name}: the exported .h5 read back "
+                                 "is not the .dgt's trees")
+        print(f"    {EXPORT_FRAMES} frames {got['h5'][0].shape} from the "
+              f".h5 byte-equal to the .dgt's; the .h5 read back: "
+              f"{len(back)} leaves bit-equal to the .dgt's")
+
+
+def engine_profiles(models: dict, smi: str) -> None:
+    """(c): profile_engine's tables of the four engines, the kernels'
+    rows counted."""
+    fams = {f.name: f for f in FAMILIES}
+    dev = next(models["fsrgan"].parameters()).device
+    for family, mode, body in PROFILES:
+        fam = fams[family]
+        print(f"  profile_engine {family} {profile_engine.MODES[mode]} "
+              f"({body} body), {PROFILE_FRAMES} frames at {HEIGHT}x{WIDTH} "
+              f"[{smi}]:")
+        res = profile_engine.profile(family, mode, PROFILE_FRAMES, body,
+                                     models[family], dev, HEIGHT, WIDTH)
+        if res is None:
+            raise AssertionError(f"{family} {mode} {body}: no trace")
+        want = {fam.kernel_name: PROFILE_FRAMES}
+        if body == "k3":
+            want["mbconv_kernel"] = K3_BLOCKS * PROFILE_FRAMES
+        for kernel, n in want.items():
+            rows = [(name, ms, c) for name, ms, c in res["rows"]
+                    if re.search(rf"\b{kernel}\b", name)]
+            count = sum(c for _, _, c in rows)
+            if count != n:
+                raise AssertionError(
+                    f"{family} {mode} {body}: {count} {kernel} events in "
+                    f"the trace, not {n} ({[r[0][:60] for r in rows]})")
+            print(f"    {kernel}: {count} events over {PROFILE_FRAMES} "
+                  f"frames, {sum(ms for _, ms, _ in rows) / PROFILE_FRAMES:.3f}"
+                  f" ms a frame of the {res['total_ms'] / PROFILE_FRAMES:.3f}"
+                  " ms of device time")
+
+
+def export_phase(models: dict, smi: str) -> None:
+    """Phase 4k (see the module docstring)."""
+    t0 = time.perf_counter()
+    print(f"phase 4k the reverse interop (.dgt -> Keras .h5) and the engine "
+          f"profiles [{smi}]:")
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir()
+    try:
+        fixture_export(EXPORT_DIR)
+        export_cli(models, EXPORT_DIR)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    engine_profiles(models, smi)
+    print(f"  phase 4k took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -3960,6 +4130,8 @@ def main() -> None:
     space_phase(smi)
     # ---- phase 4j: the quality tools; K1-K3 on the table's weights
     quality_phase(smi)
+    # ---- phase 4k: a .dgt to the reference's .h5; the engine profiles
+    export_phase(models, smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

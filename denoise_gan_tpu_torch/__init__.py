@@ -14,13 +14,15 @@ tiling and the coarse-tail rewrite (``infer/engine.py``, ``infer/tile.py``,
 exports read and written without flax (``io/``), the video, image and
 comparison CLIs (``infer/video.py``, ``infer/image.py``, ``unit_test.py``)
 with an uncompressed RGBA AVI that needs no cv2 (``io/avi.py``), and the
-reference's Keras ``.h5`` files read without h5py (``io/hdf5.py``,
-``io/keras_h5.py``); training
+reference's Keras ``.h5`` files read and written without h5py or
+TensorFlow (``io/hdf5.py``, ``io/keras_h5.py``, ``tools/export_h5.py``);
+training
 of the four families (``train/``: the joint G+D step, the trainers'
 loop, checkpoints and exports; ``models/discriminators.py``,
 ``models/vgg.py``, ``losses/``, ``ops/jpeg.py``, ``data/``) in plain
 PyTorch; the data-parallel and space axes over torch.distributed
 (``parallel/``),
-the native image codec (``data/native.py``); and the TPU probes'
-counterparts (``probes/``).
+the native image codec (``data/native.py``); the quality tools and the
+engine profiler (``tools/``); and the TPU probes' counterparts
+(``probes/``).
 """

@@ -1,12 +1,13 @@
-"""A read-only reader of the HDF5 subset that Keras' ``.h5`` files use, in
-plain Python (numpy and the standard library; no h5py).
+"""A reader and a writer of the HDF5 subset that Keras' ``.h5`` files use,
+in plain Python (numpy and the standard library; no h5py).
 
 The reference saves its models as Keras ``.h5`` files, and the JAX package
-reads them with h5py (denoise_gan_tpu/io/keras_h5.py).  The machine with
-the card has no h5py, so the port reads the format itself, by the HDF5
-file-format specification.  Keras (2 and 3, through h5py's default
+reads and writes them with h5py and TensorFlow (denoise_gan_tpu/io/
+keras_h5.py, tools/export_h5.py).  The machine with the card has neither,
+so the port reads and writes the format itself, by the HDF5 file-format
+specification.  Keras (2 and 3, through h5py's default
 ``libver="earliest"``) writes only the oldest structures, which is what
-this reader takes:
+the reader takes:
 
 * superblock versions 0 and 1, 8-byte offsets and lengths;
 * version-1 object headers, with their continuation blocks (0x0010);
@@ -29,10 +30,22 @@ dataset's bytes are read when it is.
 The API is the few calls of h5py that keras_h5.py makes: ``File(path)``
 (also a context manager), and on it and on its groups ``attrs`` (a dict),
 ``keys()``, ``in`` and ``[name]`` ('/'-separated paths).  A dataset has
-``shape`` and reads to a numpy array by ``ds[()]`` or ``np.asarray(ds)``.  Values read as h5py gives them: arrays in the stored
+``shape`` and reads to a numpy array by ``ds[()]`` or ``np.asarray(ds)``.
+Values read as h5py gives them: arrays in the stored
 byte order, ``S<n>`` bytes for fixed-length strings, objects for
 variable-length ones (str in attributes, bytes in datasets); a scalar
 attribute as its element, a null dataspace's as None.
+
+The writer (``NewGroup``, ``write``) lays out the same subset as h5py
+writes it for Keras: superblock version 0 (group leaf K 4, internal K 16,
+h5py's), version-1 object headers in one block, old-style groups (the
+links sorted by name in ``SNOD`` nodes of 8 under a group B-tree of as
+many levels as they need), contiguous datasets of IEEE floats and
+integers (0-d and 0-size too), and version-1 attributes: numbers,
+fixed-length null-padded ``S<n>`` strings, and variable-length ASCII or
+UTF-8 strings (``Strings``: one, or a 1-D array) in one ``GCOL``
+collection.  An attribute past HDF5's 64 KiB message limit raises
+ValueError (Keras splits such a list, keras_h5.py).
 """
 
 from __future__ import annotations
@@ -487,3 +500,293 @@ class File(Group):
         except KeyError:
             raise self.refuse(f"global heap object {index} missing from the "
                               f"collection at {coll:#x}", where) from None
+
+
+# ---------------------------------------------------------------------------
+# the writer
+
+LEAF_K = 4           # a symbol-table node holds 2 * LEAF_K links (h5py's)
+NODE_K = 16          # a group B-tree node, 2 * NODE_K children (h5py's)
+GCOL_MIN = 4096      # the least size of a global heap collection
+MESSAGE_MAX = 0xFFF8  # a version-1 header message's body: 2-byte size, 8-aligned
+FREE_NULL = 1        # a local heap's "no free block" (H5HL_FREE_NULL)
+SNOD_SIZE = 8 + 2 * LEAF_K * 40
+TREE_SIZE = 24 + 2 * NODE_K * 8 + (2 * NODE_K + 1) * 8
+# a dataset's fill value message as h5py writes it (version 2: allocated
+# late, the library's default value)
+FILL_VALUE = bytes([2, 2, 2, 1, 0, 0, 0, 0])
+_FLOATS = {2: (15, 10, 5, 10, 15), 4: (31, 23, 8, 23, 127),
+           8: (63, 52, 11, 52, 1023)}   # sign, exponent at, size, mantissa, bias
+
+
+def _pad(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+class Strings:
+    """An attribute of variable-length strings: one (a scalar attribute)
+    or a sequence (a 1-D one), str or bytes, flagged with `charset`
+    "utf-8" (what h5py writes for str) or "ascii" (for bytes)."""
+
+    def __init__(self, value, charset: str = "utf-8"):
+        if charset not in ("utf-8", "ascii"):
+            raise ValueError(f"charset {charset!r}: utf-8 or ascii")
+        self.scalar = isinstance(value, (str, bytes))
+        values = [value] if self.scalar else list(value)
+        self.values = [v if isinstance(v, bytes) else v.encode("utf-8")
+                       for v in values]
+        self.charset = charset
+
+
+class NewGroup:
+    """A group to write: ``attrs`` (written in insertion order: numpy
+    numbers, ``S<n>`` arrays, ``Strings``, str), and its links to groups
+    (``create_group``) and datasets (``group[path] = array``: IEEE floats
+    or integers) by '/'-separated paths."""
+
+    def __init__(self):
+        self.attrs: dict = {}
+        self.links: dict = {}
+
+    def create_group(self, path: str) -> "NewGroup":
+        """The group at `path`, made with its parents where missing."""
+        node = self
+        for part in [p for p in path.split("/") if p]:
+            child = node.links.setdefault(part, NewGroup())
+            if not isinstance(child, NewGroup):
+                raise ValueError(f"{path!r}: {part!r} is a dataset")
+            node = child
+        return node
+
+    def __setitem__(self, path: str, array) -> None:
+        parent, _, name = path.strip("/").rpartition("/")
+        group = self.create_group(parent)
+        a = np.asarray(array)
+        if a.dtype.kind not in "fiu" or a.dtype.itemsize not in (1, 2, 4, 8) \
+                or (a.dtype.kind == "f" and a.dtype.itemsize == 1):
+            raise ValueError(f"{path!r}: a dataset of {a.dtype} (IEEE "
+                             "floats and integers only)")
+        if name in group.links:
+            raise ValueError(f"{path!r} exists")
+        group.links[name] = a
+
+
+def _number_type(dtype: np.dtype) -> bytes:
+    """A datatype message (version 1) of an IEEE float or an integer."""
+    big = 1 if dtype.str[0] == ">" else 0
+    size = dtype.itemsize
+    if dtype.kind == "f":
+        sign, exp_at, exp_size, man_size, bias = _FLOATS[size]
+        # bits: byte order, mantissa normalised (implied leading 1)
+        return struct.pack("<BBBBIHHBBBBI", 0x11, big | 0x20, sign, 0, size,
+                           0, 8 * size, exp_at, exp_size, 0, man_size, bias)
+    signed = 0x08 if dtype.kind == "i" else 0
+    return struct.pack("<BBBBIHH", 0x10, big | signed, 0, 0, size, 0,
+                       8 * size)
+
+
+def _space(shape: tuple[int, ...]) -> bytes:
+    """A dataspace message (version 1): scalar for (), else simple with
+    its maximum dimensions, as h5py writes them."""
+    rank = len(shape)
+    return struct.pack(f"<BBBB4x{2 * rank}Q", 1, rank, 1 if rank else 0, 0,
+                       *shape, *shape)
+
+
+class _Layout:
+    """The file of a NewGroup tree: metadata (superblock, the global heap,
+    headers, heaps, B-trees, symbol-table nodes) first, then the datasets'
+    bytes, whose addresses are filled into their layout messages last."""
+
+    def __init__(self, root: NewGroup):
+        self.meta = bytearray(96)                 # the superblock's room
+        strings = list(self._strings(root))
+        if len(strings) > 0xFFFF:
+            raise ValueError(f"{len(strings)} variable-length strings: one "
+                             "global heap collection holds 65,535")
+        self.gcol, self.n_strings = self._gcol(strings), 0
+        self.data: list[tuple[int, np.ndarray]] = []
+        root_addr, (btree, heap) = self._group(root, "/")
+        start = len(self.meta)
+        for field, a in self.data:
+            struct.pack_into("<Q", self.meta, field, start)
+            start += -(-a.nbytes // 8) * 8
+        self.meta[:96] = (SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                          + struct.pack("<HHIQQQQQQIIQQ", LEAF_K, NODE_K, 0,
+                                        0, UNDEFINED, start, UNDEFINED,
+                                        0, root_addr, 1, 0, btree, heap))
+
+    def write(self, path: str) -> None:
+        with open(path, "wb") as f:
+            f.write(self.meta)
+            for _, a in self.data:
+                f.write(a.tobytes())
+                f.write(bytes(-a.nbytes % 8))
+
+    def alloc(self, n: int) -> int:
+        addr = len(self.meta)
+        self.meta += bytes(-(-n // 8) * 8)
+        return addr
+
+    def put(self, addr: int, b: bytes) -> None:
+        self.meta[addr:addr + len(b)] = b
+
+    # -- the global heap ------------------------------------------------
+
+    @staticmethod
+    def _strings(group: NewGroup):
+        """Every variable-length string of the tree, in _group's order."""
+        for value in group.attrs.values():
+            if isinstance(value, str):
+                value = Strings(value)
+            if isinstance(value, Strings):
+                yield from value.values
+        for _, child in sorted(group.links.items(),
+                               key=lambda kv: kv[0].encode()):
+            if isinstance(child, NewGroup):
+                yield from _Layout._strings(child)
+
+    def _gcol(self, strings: list[bytes]) -> int:
+        """The collection of `strings` (object i + 1 is strings[i]), with
+        the free space after them as object 0; its address (0: none)."""
+        if not strings:
+            return 0
+        objects = b"".join(struct.pack("<HHIQ", i + 1, 0, 0, len(s))
+                           + _pad(s) for i, s in enumerate(strings))
+        used = 16 + len(objects)
+        size = max(GCOL_MIN, used)
+        if 0 < size - used < 16:
+            size += 16
+        if size > used:
+            objects += struct.pack("<HHIQ", 0, 0, 0, size - used)
+        addr = self.alloc(size)
+        self.put(addr, b"GCOL\x01\0\0\0" + struct.pack("<Q", size) + objects)
+        return addr
+
+    # -- messages -------------------------------------------------------
+
+    def _attribute(self, name: str, value, where: str) -> bytes:
+        """A version-1 attribute message."""
+        if isinstance(value, str):
+            value = Strings(value)
+        if isinstance(value, Strings):
+            cset = 1 if value.charset == "utf-8" else 0
+            dtype = struct.pack("<BBBBI", 0x19, 0x01, cset, 0, 16) + \
+                struct.pack("<BBBBIHH", 0x10, 0, 0, 0, 1, 0, 8)
+            shape = () if value.scalar else (len(value.values),)
+            raw = b""
+            for s in value.values:
+                self.n_strings += 1
+                raw += struct.pack("<IQI", len(s), self.gcol, self.n_strings)
+        else:
+            a = np.asarray(value)
+            if a.dtype.kind == "S":
+                dtype = struct.pack("<BBBBI", 0x13, 0x01, 0, 0,
+                                    a.dtype.itemsize)
+            elif a.dtype.kind in "fiu":
+                dtype = _number_type(a.dtype)
+            else:
+                raise ValueError(f"{where}: attribute {name!r} of {a.dtype} "
+                                 "(numbers, S<n> and Strings only)")
+            shape, raw = a.shape, np.ascontiguousarray(a).tobytes()
+        key = name.encode("utf-8") + b"\0"
+        space = _space(shape)
+        body = (struct.pack("<BBHHH", 1, 0, len(key), len(dtype), len(space))
+                + _pad(key) + _pad(dtype) + _pad(space) + raw)
+        if len(body) > MESSAGE_MAX:
+            raise ValueError(f"{where}: attribute {name!r} takes {len(body)} "
+                             f"bytes, past an object header message's "
+                             f"{MESSAGE_MAX} (split it)")
+        return body
+
+    def _header(self, messages: list[tuple[int, bytes, int]]
+                ) -> tuple[int, list[int]]:
+        """A version-1 object header of (type, body, flags) messages in one
+        block: its address and each message body's."""
+        body, at = b"", []
+        for t, b, flags in messages:
+            at.append(16 + len(body) + 8)
+            body += struct.pack("<HHB3x", t, len(_pad(b)), flags) + _pad(b)
+        addr = self.alloc(16 + len(body))
+        self.put(addr, struct.pack("<BBHII4x", 1, 0, len(messages), 1,
+                                   len(body)) + body)
+        return addr, [addr + a for a in at]
+
+    # -- objects --------------------------------------------------------
+
+    def _dataset(self, a: np.ndarray) -> int:
+        layout = struct.pack("<BBQQ", 3, 1, UNDEFINED, a.nbytes)
+        addr, bodies = self._header([(0x0001, _space(a.shape), 0),
+                                     (0x0003, _number_type(a.dtype), 1),
+                                     (0x0005, FILL_VALUE, 1),
+                                     (0x0008, layout, 0)])
+        if a.nbytes:
+            # the layout's address field, filled in once the data is placed
+            self.data.append((bodies[3] + 2, np.ascontiguousarray(a)))
+        return addr
+
+    def _group(self, group: NewGroup, where: str) -> tuple[int, tuple[int,
+                                                                      int]]:
+        """Lay out `group` and, after its header, its links: (header
+        address, (B-tree address, local heap address))."""
+        links = sorted(group.links.items(), key=lambda kv: kv[0].encode())
+        heap_data, offsets = bytearray(8), {}      # offset 0: ""
+        for name, _ in links:
+            offsets[name] = len(heap_data)
+            heap_data += _pad(name.encode("utf-8") + b"\0")
+        heap = self.alloc(32 + len(heap_data))
+        self.put(heap, b"HEAP\0\0\0\0" + struct.pack(
+            "<QQQ", len(heap_data), FREE_NULL, heap + 32) + heap_data)
+        chunks = [links[i:i + 2 * LEAF_K]
+                  for i in range(0, len(links), 2 * LEAF_K)]
+        snods = [self.alloc(SNOD_SIZE) for _ in chunks]
+        btree = self._btree([(s, offsets[c[-1][0]])
+                             for s, c in zip(snods, chunks)])
+        attrs = [(0x000C, self._attribute(k, v, where), 0)
+                 for k, v in group.attrs.items()]
+        header, _ = self._header(
+            [(0x0011, struct.pack("<QQ", btree, heap), 0)] + attrs)
+        for snod, chunk in zip(snods, chunks):
+            entries = b""
+            for name, child in chunk:
+                if isinstance(child, NewGroup):
+                    addr, (cb, ch) = self._group(
+                        child, where.rstrip("/") + "/" + name)
+                    entries += struct.pack("<QQIIQQ", offsets[name], addr, 1,
+                                           0, cb, ch)
+                else:
+                    entries += struct.pack("<QQII16x", offsets[name],
+                                           self._dataset(child), 0, 0)
+            self.put(snod, b"SNOD\x01\0" + struct.pack("<H", len(chunk))
+                     + entries)
+        return header, (btree, heap)
+
+    def _btree(self, items: list[tuple[int, int]]) -> int:
+        """The group B-tree over (child address, heap offset of its last
+        name) items, as many levels as 2 * NODE_K children a node need;
+        the root's address.  A node's first key is the previous node's
+        last (the first node's: offset 0, the empty name)."""
+        level = 0
+        while True:
+            groups = [items[i:i + 2 * NODE_K]
+                      for i in range(0, len(items), 2 * NODE_K)] or [[]]
+            addrs = [self.alloc(TREE_SIZE) for _ in groups]
+            left = 0
+            for i, (addr, node) in enumerate(zip(addrs, groups)):
+                sib_l = addrs[i - 1] if i else UNDEFINED
+                sib_r = addrs[i + 1] if i + 1 < len(addrs) else UNDEFINED
+                body = struct.pack("<Q", left) + b"".join(
+                    struct.pack("<QQ", child, key) for child, key in node)
+                self.put(addr, b"TREE" + struct.pack(
+                    "<BBHQQ", 0, level, len(node), sib_l, sib_r) + body)
+                left = node[-1][1] if node else left
+            if len(addrs) == 1:
+                return addrs[0]
+            items = [(a, node[-1][1]) for a, node in zip(addrs, groups)]
+            level += 1
+
+
+def write(path: str, root: NewGroup) -> None:
+    """Write the tree under `root` (its attributes the file's root group's)
+    as an HDF5 file at `path` (see the module docstring)."""
+    _Layout(root).write(path)

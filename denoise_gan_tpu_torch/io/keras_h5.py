@@ -17,6 +17,18 @@ out) flipped in both spatial axes; BatchNormalization gamma, beta, moving
 mean and variance become scale, bias, mean, var; a shared PReLU's (1, 1,
 C) alpha becomes (C,).
 
+The other way (tools/export_h5.py's, without TensorFlow or h5py):
+``records_from_tree`` turns the Flax trees into the Keras-ordered weight
+stream with the exact inverses of those transforms, and ``write_keras_h5``
+lays the stream out as Keras' legacy full-model save does, by the graph's
+description in ``keras_graphs/<graph>.json`` (its ``model_config``, layer
+and weight names, and where each weight of the stream goes; written by
+tests/make_keras_graphs.py from the reference graphs of tools/
+bench_train_tf_cpu.py).  Seven graphs: the four generators at the JAX
+tool's scales (SRGAN and FSRGAN 4, the others 1), the PatchGAN with logits
+(SRGAN, FSRGAN) and with a sigmoid (the autoencoder), and pix2pix's
+discriminator.
+
 Left out: the JAX module's TensorFlow routes (``keras_weight_stream``,
 ``load_keras_model``, ``convert_keras_model``), which need a live Keras
 model, and tools/convert_h5.py's fallback that rebuilds the graph in
@@ -36,6 +48,7 @@ packages read.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -49,6 +62,11 @@ from denoise_gan_tpu_torch.models import build_generator, build_models
 FAMILIES = ("autoencoder", "pix2pix", "srgan", "fsrgan")
 DEFAULT_SCALE = {"autoencoder": 1, "pix2pix": 1, "srgan": 4, "fsrgan": 4}
 HDF5_MAGIC = hdf5.SIGNATURE
+GRAPHS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "keras_graphs")
+# Keras' legacy writer splits a name list whose numpy array passes this
+# into <name>0, <name>1, ... (HDF5_OBJECT_HEADER_LIMIT)
+KERAS_ATTR_LIMIT = 64512
 
 Records = list[tuple[str, list[np.ndarray]]]
 
@@ -108,6 +126,20 @@ def _s(x) -> str:
     return x.decode() if isinstance(x, bytes) else str(x)
 
 
+def attr_list(attrs: dict, name: str) -> list[str]:
+    """A name list attribute as Keras' legacy reader takes it
+    (load_attributes_from_hdf5_group): `name`, or the chunks `name`0,
+    `name`1, ... that its writer split a long list into; [] where
+    neither is."""
+    if name in attrs:
+        return [_s(n) for n in attrs[name]]
+    out, i = [], 0
+    while f"{name}{i}" in attrs:
+        out += [_s(n) for n in attrs[f"{name}{i}"]]
+        i += 1
+    return out
+
+
 def h5_weight_stream(path: str) -> Records:
     """[(kind, arrays)] of every weighted layer of a legacy Keras ``.h5``
     (full model or weights), in the file's ``layer_names`` order; kinds
@@ -120,14 +152,14 @@ def h5_weight_stream(path: str) -> Records:
     records = []
     with hdf5.File(path) as f:
         g = f["model_weights"] if "model_weights" in f else f
-        if "layer_names" not in g.attrs:
+        if not {"layer_names", "layer_names0"} & set(g.attrs):
             raise ValueError(
                 f"{path}: no legacy layer_names attr, not a Keras "
                 "full-model/weights .h5 (a .weights.h5 needs the JAX "
                 "package's tools/convert_h5.py, with TensorFlow)")
-        for name in [_s(n) for n in g.attrs["layer_names"]]:
+        for name in attr_list(g.attrs, "layer_names"):
             grp = g[name]
-            wnames = [_s(w) for w in grp.attrs.get("weight_names", [])]
+            wnames = attr_list(grp.attrs, "weight_names")
             if not wnames:
                 continue
             order: list[str] = []
@@ -380,6 +412,138 @@ def load_h5_generator(path: str, device: torch.device | str = "cuda",
     print(f"converted Keras h5 -> {config['family']} generator (scale "
           f"{config['scale']}): {path}")
     return config, net
+
+
+# ---------------------------------------------------------------------------
+# the Flax trees onto a Keras .h5 (tools/export_h5.py's direction)
+
+def _node(tree: dict, path: str) -> dict:
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _f32(leaf) -> np.ndarray:
+    """A leaf as the float32 array Keras' set_weights stores (a bf16 leaf
+    of io/flax_msgpack.py is a torch tensor)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.float().numpy()
+    return np.asarray(leaf, np.float32)
+
+
+def records_from_tree(params: dict, stats: dict, family: str, role: str,
+                      scale: int) -> Records:
+    """The Flax trees -> Keras-ordered [(kind, arrays)], by the exact
+    inverses of map_weights' transforms (tools/export_h5.py:43-73): a
+    depthwise kernel's last two axes swapped back, a transposed conv's
+    kernel flipped in both spatial axes and its last two axes swapped, a
+    PReLU alpha reshaped to (1, 1, C), a BatchNorm as gamma, beta, moving
+    mean and variance."""
+    spec = (gen_spec(family, scale) if role == "generator"
+            else disc_spec(family))
+    records = []
+    for path, kind in spec:
+        p = _node(params, path)
+        if kind == "conv":
+            w = [_f32(p["kernel"])]
+        elif kind == "dwconv":
+            w = [np.transpose(_f32(p["kernel"]), (0, 1, 3, 2))]
+        elif kind == "convt":
+            w = [np.transpose(_f32(p["kernel"]), (0, 1, 3, 2))[::-1, ::-1]]
+        elif kind == "bn":
+            s = _node(stats, path)
+            w = [_f32(p["scale"]), _f32(p["bias"]), _f32(s["mean"]),
+                 _f32(s["var"])]
+        else:                                       # prelu
+            w = [_f32(p["alpha"]).reshape(1, 1, -1)]
+        if kind in ("conv", "dwconv", "convt") and "bias" in p:
+            w.append(_f32(p["bias"]))
+        records.append((kind, w))
+    return records
+
+
+def graph_name(family: str, role: str) -> str:
+    """The reference graph that holds `family`'s `role`: a generator's
+    own, or one of the three discriminators."""
+    if role == "generator":
+        return f"{family}_generator"
+    if family == "pix2pix":
+        return "pix2pix_discriminator"
+    return ("patchgan_sigmoid_discriminator" if family == "autoencoder"
+            else "patchgan_discriminator")
+
+
+def load_graph(name: str) -> dict:
+    """keras_graphs/<name>.json (tests/make_keras_graphs.py)."""
+    with open(os.path.join(GRAPHS_DIR, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _names_attr(group: hdf5.NewGroup, name: str, names: list[str]) -> None:
+    """A name list as Keras' legacy writer stores it
+    (save_attributes_to_hdf5_group): variable-length ASCII strings (h5py's
+    form of a list of bytes), a float64 [] when empty, and past
+    KERAS_ATTR_LIMIT bytes as a numpy ``S<n>`` array, split evenly into
+    `name`0, `name`1, ... of fixed-length strings."""
+    data = np.asarray([n.encode("utf-8") for n in names])
+    chunks = 1
+    while any(c.nbytes > KERAS_ATTR_LIMIT
+              for c in np.array_split(data, chunks)):
+        chunks += 1
+    if chunks > 1:
+        for i, chunk in enumerate(np.array_split(data, chunks)):
+            group.attrs[f"{name}{i}"] = chunk
+    elif names:
+        group.attrs[name] = hdf5.Strings(names, "ascii")
+    else:
+        group.attrs[name] = np.array([])
+
+
+def write_keras_h5(path: str, records: Records, family: str, role: str,
+                   scale: int) -> None:
+    """Write the weight stream `records` of `family`'s `role` as the
+    reference's Keras full-model ``.h5`` (legacy format): the root's
+    ``keras_version``, ``backend`` and ``model_config`` (UTF-8), and under
+    ``model_weights`` its ``layer_names``, ``backend`` and
+    ``keras_version`` (ASCII), a group a layer with its ``weight_names``,
+    and each weight as a float32 dataset at ``<layer>/<weight name>``, as
+    ``model.save`` of tools/export_h5.py's graph writes them (the graph's
+    description: keras_graphs/).  ValueError where the stream does not
+    fit the graph, and for an SRGAN generator of another scale than 4: the
+    JAX tool builds only the 4x graph (tools/export_h5.py:113)."""
+    if (family, role) == ("srgan", "generator") and scale != 4:
+        raise ValueError(
+            f"an SRGAN generator of scale {scale}: the reference graph that "
+            "tools/export_h5.py builds (build_srgan_generator()) is the 4x "
+            f"one, which a scale-{scale} export's weights do not fit")
+    graph = load_graph(graph_name(family, role))
+    arrays = [a for _, ws in records for a in ws]
+    want = sum(len(g["weights"]) for g in graph["groups"])
+    if len(arrays) != want:
+        raise ValueError(f"{family} {role}: {len(arrays)} weights for the "
+                         f"{graph['graph']} graph's {want}")
+    attrs = graph["attrs"]
+    root = hdf5.NewGroup()
+    root.attrs["keras_version"] = attrs["keras_version"]
+    root.attrs["backend"] = attrs["backend"]
+    root.attrs["model_config"] = json.dumps(attrs["model_config"])
+    weights = root.create_group("model_weights")
+    _names_attr(weights, "layer_names", graph["layer_names"])
+    weights.attrs["backend"] = hdf5.Strings(attrs["backend"], "ascii")
+    weights.attrs["keras_version"] = hdf5.Strings(attrs["keras_version"],
+                                                  "ascii")
+    for g in graph["groups"]:
+        group = weights.create_group(g["name"])
+        _names_attr(group, "weight_names", g["weight_names"])
+        for name, shape, index in g["weights"]:
+            a = arrays[index]
+            if list(a.shape) != shape:
+                raise ValueError(
+                    f"{family} {role}: weight {index} has shape "
+                    f"{tuple(a.shape)}, the graph's {g['name']}/{name} "
+                    f"{tuple(shape)}")
+            group[name] = np.ascontiguousarray(a, np.float32)
+    hdf5.write(path, root)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -719,3 +719,27 @@ def test_quality_table_family_on_card_by_default(quality, tmp_path):
     assert res["steps"] == 1 and res["peak_mib"] > 0
     for k in ("psnr_model", "ssim_model", "psnr_input", "ssim_input"):
         assert np.isfinite(res[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the engine profiler (denoise_gan_tpu_torch/tools/profile_engine.py)
+
+@pytest.fixture(scope="module")
+def exporting(port):
+    """tests/torch_side_export_h5.py in a child of its own (`port` skips
+    first without a card)."""
+    with torch_process("torch_side_export_h5") as call:
+        yield call
+
+
+def test_profile_engine_counts_k1_once_a_frame_on_card(exporting):
+    """profile_engine.profile on the card (FSRGAN w8a8, 135x240, three
+    traced frames): the trace's device rows hold K1 (tail_kernel) three
+    times, with device time."""
+    import re
+    rows = exporting("cuda_profile", 135, 240, 3)
+    k1 = [(name, ms, n) for name, ms, n in rows
+          if re.search(r"\btail_kernel\b", name)]
+    print(k1)
+    assert sum(n for _, _, n in k1) == 3
+    assert all(ms > 0 for _, ms, _ in k1)

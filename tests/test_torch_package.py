@@ -1,10 +1,14 @@
 """The PyTorch port stands alone: no module of denoise_gan_tpu_torch, nor
 chip_smoke.py, the root launchers of the port's CLIs (*_torch.py) or the
-tests' torch-side helpers, imports jax, flax or the JAX package; and the
-package runs with jax, flax, msgpack and cv2 unimportable, as on the
-machine with the card: a .dgt export written and read back, and the video
-CLI on an RGBA AVI through the kernel engine; the trainers' modules and
-launchers import there too."""
+tests' torch-side helpers, imports jax, flax or the JAX package; the
+Keras interop and the profiler (io/hdf5.py, io/keras_h5.py,
+tools/export_h5.py, tools/profile_engine.py) import neither h5py,
+TensorFlow, Keras nor a script of the root tools/; and the package runs
+with jax, flax, msgpack, cv2, h5py, TensorFlow and Keras unimportable, as
+on the machine with the card: a .dgt export written and read back, and
+exported to the reference's .h5 and read back, and the video CLI on an
+RGBA AVI through the kernel engine; the trainers' modules and launchers
+import there too."""
 
 import ast
 import os
@@ -21,6 +25,11 @@ skip_without_torch()
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "denoise_gan_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "denoise_gan_tpu")
+# the modules that read and write Keras files and profile the engines
+INTEROP = [PKG / "io" / "hdf5.py", PKG / "io" / "keras_h5.py",
+           PKG / "tools" / "export_h5.py", PKG / "tools" / "profile_engine.py"]
+INTEROP_FORBIDDEN = FORBIDDEN + ("h5py", "tensorflow", "keras", "tools") + \
+    tuple(sorted(p.stem for p in (REPO / "tools").glob("*.py")))
 
 
 def _imports(path: Path):
@@ -41,7 +50,8 @@ def _sources():
         REPO / "tests" / "torch_side_training.py",
         REPO / "tests" / "torch_side_parallel.py",
         REPO / "tests" / "torch_side_keras_h5.py",
-        REPO / "tests" / "torch_side_quality.py"]
+        REPO / "tests" / "torch_side_quality.py",
+        REPO / "tests" / "torch_side_export_h5.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -53,6 +63,15 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", INTEROP,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_interop_imports_nothing_foreign(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in INTEROP_FORBIDDEN and
+           not m.startswith("denoise_gan_tpu_torch")]
+    assert not bad, f"{path} imports {bad}"
+
+
 def test_package_runs_without_jax(tmp_path):
     """Import every module, run the tail twin on the CPU and load the
     reference's Keras .h5 in a process where ``import jax`` and ``import
@@ -60,7 +79,7 @@ def test_package_runs_without_jax(tmp_path):
     code = """
 import sys
 for name in ("jax", "flax", "jaxlib", "denoise_gan_tpu", "msgpack", "cv2",
-             "h5py"):
+             "h5py", "tensorflow", "keras"):
     sys.modules[name] = None
 import importlib, pkgutil
 import numpy as np
@@ -94,7 +113,16 @@ for score in ("0", "1"):
 from denoise_gan_tpu_torch.io.checkpoint import load_generator
 config, _ = load_generator(H5, device="cpu")
 assert config["family"] == "fsrgan" and config["source"] == "keras_h5"
-assert not any(m.split(".")[0] in ("jax", "flax", "h5py")
+from denoise_gan_tpu_torch.tools import export_h5
+from denoise_gan_tpu_torch.io import flax_msgpack
+from denoise_gan_tpu_torch.io.params import to_jax_trees
+assert export_h5.main(["--dgt", "m.dgt", "--out", "m.h5"]) == 0
+config, back = load_generator("m.h5", device="cpu")
+assert (config["family"], config["scale"]) == ("fsrgan", 4)
+assert flax_msgpack.dumps(dict(zip("ps", to_jax_trees(back)))) == \
+    flax_msgpack.dumps(dict(zip("ps", to_jax_trees(model))))
+assert not any(m.split(".")[0] in ("jax", "flax", "h5py", "tensorflow",
+                                   "keras")
                and sys.modules[m] is not None for m in sys.modules)
 print("ok")
 """
