@@ -278,9 +278,10 @@ Phases, each printed on its own line:
    rank (counts zeroed just before, read just after); the same with the K3
    body (K3 six times a frame); the autoencoder's f32 crop engine with its
    tile batch split over the ranks, within phase 4e's bound of the
-   one-process engine (byte-equality printed).  The native codec: whether
-   it built, the decoder data/pipeline.py::decode_image uses, and where
-   it built the ms of a JPEG round trip of a seeded 1356x2040 image.
+   one-process engine (byte-equality printed).  The port's image codec
+   (denoise_gan_tpu_torch/native/imgcodec.cpp): whether it built, the
+   decoder data/pipeline.py::decode_image uses, and the ms of a JPEG
+   round trip of a seeded 1356x2040 image.
    Printed: the two-rank step's ms beside the one-process step's, with the
    card's name and power limit (two ranks sharing one card: not a scaling
    figure), and the phase's time.
@@ -343,6 +344,27 @@ Phases, each printed on its own line:
    count, name of the device events), K1's or K2's row six times in the
    trace, K3's 36 times with the K3 body; printed beside the card's name
    and power limit, the phase's time.
+4l. The port's image codec (data/native.py: native/imgcodec.cpp built by
+   g++ with no library, data/png.py) on the card's machine, which cannot
+   build against libjpeg or libpng.  Its g++ build into a fresh directory
+   (timed), and data/pipeline.py::decode_image's decoder, which must be
+   the port's codec; every fixture of tests/data/codec/ decoded, its
+   sha256 the sidecar's (the JAX package's libjpeg/libpng decode; the
+   files libjpeg refuses or reads in part: None or that decode); the
+   exact round trip of tests/codec_seeds.py's seeded images at
+   nine qualities and seven sizes, each sha256 the sidecar's.  Host-clock
+   times (mean of 3 after one) of a seeded 1356x2040 image written as PNG
+   and as JPEG (quality 95) by the codec, each read back, and of the round
+   trip (quality 75), beside the card's name and power limit.  FSRGAN
+   trained on the card from a folder of two PNG and two JPEG files of
+   that size (train_fsrgan_torch.py, batch 2, one epoch of 2 steps; no
+   hand kernel launched; every file read by the codec; losses finite).
+   The image CLI (infer_torch.py's main, FSRGAN's seeded export) on a
+   .png and a .jpg input on the card: the outputs read back, the PNG
+   equal to the forward's bytes called here, the JPEG to their round trip
+   at 95.  tools/cross_oracle_eval.py's port on the seeded FSRGAN export
+   on the card at q 50 over a 4-image synthetic corpus: its table printed,
+   every value finite.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -418,6 +440,7 @@ import contextlib
 import copy
 import hashlib
 import importlib
+import importlib.util
 import io
 import json
 import math
@@ -468,8 +491,9 @@ from denoise_gan_tpu_torch.ops import tail_srgan
 from denoise_gan_tpu_torch.probes import (dw_forms, fma_peak, int8_chain,
                                           mbpipe, overlap, relayout,
                                           u8_store)
-from denoise_gan_tpu_torch.tools import (convert_vgg19, export_h5,
-                                         profile_engine, quality_table)
+from denoise_gan_tpu_torch.tools import (convert_vgg19, cross_oracle_eval,
+                                         export_h5, profile_engine,
+                                         quality_table)
 from denoise_gan_tpu_torch.train.state import create_train_state
 from denoise_gan_tpu_torch.train.step import PARTS, build_train_step
 from denoise_gan_tpu_torch.utils import card
@@ -3349,7 +3373,7 @@ def codec_reading() -> None:
     and where it built, the ms of a JPEG round trip (quality 75) of a
     seeded DIV2K-sized uint8 image (mean of 3 after one)."""
     built = native.available()
-    print(f"  codec: native/imgcodec.cpp "
+    print(f"  codec: the port's denoise_gan_tpu_torch/native/imgcodec.cpp "
           f"{'built' if built else 'not built: ' + native.build_error}; "
           f"data/pipeline.py::decode_image decodes image files by "
           f"{pipeline.decoder()}")
@@ -3364,7 +3388,7 @@ def codec_reading() -> None:
     ms = (time.perf_counter() - t) / 3 * 1e3
     if out is None or out.shape != img.shape:
         raise AssertionError("the native JPEG round trip failed")
-    print(f"    JPEG round trip (libjpeg encode + decode, quality 75) of a "
+    print(f"    JPEG round trip (libjpeg's encode + decode, quality 75) of a "
           f"{DIV2K_HW[0]}x{DIV2K_HW[1]} image: {ms:.2f} ms (host clock)")
 
 
@@ -4040,6 +4064,236 @@ def export_phase(models: dict, smi: str) -> None:
     print(f"  phase 4k took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the port's image codec
+
+CODEC_DIR = ROOT / "_codec_smoke"      # the phase's files (deleted after)
+CODEC_FIXTURES = ROOT / "tests" / "data" / "codec"
+CODEC_TRAIN = 4                        # 2 PNG + 2 JPEG at DIV2K's size
+CODEC_BATCH = 2
+CODEC_CLI_HW = (256, 384)              # the image CLI's input
+CODEC_Q = 50                           # the cross-oracle table's quality
+CODEC_VAL = 4
+CODEC_TIMED = 3                        # host-clock calls, after one
+
+
+def codec_seeds():
+    """tests/codec_seeds.py (numpy and hashlib only): the seeded images
+    and the digest the codec fixtures' sidecar is keyed by."""
+    spec = importlib.util.spec_from_file_location(
+        "codec_seeds", ROOT / "tests" / "codec_seeds.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_ms(fn: Callable[[], object]) -> tuple[object, float]:
+    """fn's result and its host-clock ms, the mean of CODEC_TIMED calls
+    after one."""
+    out = fn()
+    t = time.perf_counter()
+    for _ in range(CODEC_TIMED):
+        out = fn()
+    return out, (time.perf_counter() - t) / CODEC_TIMED * 1e3
+
+
+def codec_build() -> None:
+    """g++ of the codec into a fresh directory, timed; decode_image's
+    decoder must be the codec."""
+    saved = native.BUILD_DIR
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        native.BUILD_DIR = Path(d)
+        try:
+            t = time.perf_counter()
+            lib = native.build()
+            build_s = time.perf_counter() - t
+        finally:
+            native.BUILD_DIR = saved
+    decoder = pipeline.decoder()
+    print(f"  codec: g++ {' '.join(native.FLAGS)} {native.SRC.name} (no "
+          f"library) {build_s:.2f} s into {lib.name}; decode_image's "
+          f"decoder: {decoder}")
+    if decoder != "native" or not native.available():
+        raise AssertionError(f"decode_image decodes by {decoder}, not the "
+                             "port's codec")
+
+
+def codec_fixtures(mcf) -> None:
+    """Every committed fixture and the seeded round trips against the
+    sidecar's sha256s."""
+    side = json.loads((CODEC_FIXTURES / "codec.json").read_text())
+    refused = 0
+    for name, entry in sorted(side["files"].items()):
+        got = mcf.digest(native.decode(str(CODEC_FIXTURES / name)))
+        if name.startswith("bad_") and got is None:
+            refused += 1
+            continue
+        if got != entry["sha256"]:
+            raise AssertionError(f"codec fixture {name}: sha256 {got}, the "
+                                 f"sidecar's {entry['sha256']}")
+    n_rt = 0
+    for key, want in sorted(side["roundtrip"].items()):
+        hw, q = key.split("_q")
+        h, w = (int(v) for v in hw.split("x"))
+        img = mcf.seeded_image(h, w, side["roundtrip_seed"])
+        got = mcf.digest(native.jpeg_roundtrip_u8(img, int(q)))
+        if got != want:
+            raise AssertionError(f"codec round trip {key}: sha256 {got}, "
+                                 f"the sidecar's {want}")
+        n_rt += 1
+    print(f"  {len(side['files'])} fixtures decoded, each sha256 the "
+          f"sidecar's (libjpeg/libpng; {refused} refused files None); "
+          f"{n_rt} seeded round trips, each sha256 the sidecar's")
+
+
+def codec_times(mcf, directory: Path, smi: str) -> None:
+    """The seeded DIV2K-sized image written as PNG and JPEG, read back and
+    through the round trip, timed."""
+    img = mcf.seeded_image(*DIV2K_HW, SEED + 11)
+    paths = [str(directory / "div2k.png"), str(directory / "div2k.jpg")]
+    lines = []
+    for path in paths:
+        _, w_ms = host_ms(lambda: native.encode(path, img))
+        back, r_ms = host_ms(lambda: native.decode(path))
+        if path.endswith(".png"):
+            ok = np.array_equal(back, img)
+        else:
+            ok = np.array_equal(back, native.jpeg_roundtrip_u8(img, 95))
+        if not ok:
+            raise AssertionError(f"{path} read back wrong")
+        lines.append(f"{Path(path).suffix[1:]} write {w_ms:.1f} ms, read "
+                     f"{r_ms:.1f} ms ({os.path.getsize(path)} bytes)")
+    _, rt_ms = host_ms(lambda: native.jpeg_roundtrip_u8(img, 75))
+    print(f"  {DIV2K_HW[0]}x{DIV2K_HW[1]} seeded image, host clock (mean of "
+          f"{CODEC_TIMED} after one) [{smi}]: " + "; ".join(lines)
+          + f"; round trip (quality 75) {rt_ms:.1f} ms")
+
+
+def codec_training(mcf, directory: Path, dev) -> None:
+    """FSRGAN trained on the card from PNG and JPEG files, each read by
+    the codec."""
+    d = directory / "train" / "data" / "div2k"
+    d.mkdir(parents=True)
+    for i in range(CODEC_TRAIN):
+        img = mcf.seeded_image(*DIV2K_HW, SEED + 20 + i)
+        native.encode(str(d / f"{i:04d}.{'png' if i % 2 else 'jpg'}"), img)
+    reads = []
+    decode = native.decode
+
+    def counted(path):
+        reads.append(path)
+        return decode(path)
+
+    argv = ["--image_dir", "data", "--batch_size", str(CODEC_BATCH),
+            "--epochs", "1"]
+    trainer = importlib.import_module("train_fsrgan_torch")
+    cwd = os.getcwd()
+    native.decode = counted
+    reset_counts()
+    try:
+        os.chdir(directory / "train")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = trainer.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run_steps = state.step
+    finally:
+        native.decode = decode
+        os.chdir(cwd)
+    cfg = parse_args("fsrgan", argv)
+    bundle = build_models("fsrgan", scale=cfg.scale, fp16=bool(cfg.fp16))
+    step = build_train_step(bundle, cfg)
+    hr = torch.from_numpy(np.stack([
+        pipeline.decode_image(str(p))[:cfg.crop_size, :cfg.crop_size]
+        for p in sorted(d.iterdir())[:CODEC_BATCH]])).to(dev)
+    metrics = step(state, init_vgg_params(device=dev), hr,
+                   torch.Generator(device=dev).manual_seed(SEED))
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    files = {str(p.name) for p in d.iterdir()}
+    read = {Path(p).name for p in reads}
+    if fired() or bad or run_steps != CODEC_TRAIN // CODEC_BATCH \
+            or read != files:
+        raise AssertionError(f"training from image files: launches "
+                             f"{fired()}, non-finite {bad}, {run_steps} "
+                             f"steps, read {sorted(read)} of {sorted(files)}")
+    print(f"  fsrgan trained from {CODEC_TRAIN // 2} PNG + "
+          f"{CODEC_TRAIN // 2} JPEG {DIV2K_HW[0]}x{DIV2K_HW[1]} files on the "
+          f"card: {run_steps} steps, batch {CODEC_BATCH}, crop "
+          f"{cfg.crop_size}, every file read by the codec ({len(reads)} "
+          f"reads); main() {run_s:.1f} s with set-up; hand-kernel launches "
+          f"0; losses finite (gen {float(metrics['gen_loss']):.4g})")
+
+
+def codec_cli(mcf, model, export: str, directory: Path, dev) -> None:
+    """The image CLI on a .png and a .jpg input; both outputs read back."""
+    src, dst = directory / "cli_in", directory / "cli_out"
+    src.mkdir()
+    img = mcf.seeded_image(*CODEC_CLI_HW, SEED + 12)
+    native.encode(str(src / "a.png"), img)
+    native.encode(str(src / "b.jpg"), img)
+    reset_counts()
+    image_cli.main(["--image_dir", str(src), "--output_dir", str(dst),
+                    "--model", export])
+    if fired():
+        raise AssertionError(f"image CLI launched hand kernels: {fired()}")
+    fwd = build_fast_forward(model)
+    for name in ("a.png", "b.jpg"):
+        x = torch.from_numpy(pipeline.decode_image(str(src / name))).to(dev)
+        sr = (fwd(x[None])[0].float().cpu().numpy() + 1.0) / 2.0
+        want = np.clip(sr * 255.0, 0, 255).astype(np.uint8)
+        if name.endswith(".jpg"):
+            want = native.jpeg_roundtrip_u8(want, 95)
+        got = native.decode(str(dst / name))
+        if got is None or not np.array_equal(got, want):
+            raise AssertionError(f"image CLI {name}: the output read back "
+                                 "is not the forward's bytes")
+    h, w = CODEC_CLI_HW
+    print(f"  image CLI, fsrgan: a.png and b.jpg {h}x{w} -> {4 * h}x{4 * w}"
+          f", read back: the PNG the forward's bytes, the JPEG their round "
+          f"trip at 95")
+
+
+def codec_phase(models: dict, smi: str) -> None:
+    """Phase 4l (see the module docstring)."""
+    t0 = time.perf_counter()
+    dev = next(models["fsrgan"].parameters()).device
+    print(f"phase 4l the port's image codec [{smi}]:")
+    codec_build()
+    mcf = codec_seeds()
+    codec_fixtures(mcf)
+    shutil.rmtree(CODEC_DIR, ignore_errors=True)
+    CODEC_DIR.mkdir()
+    try:
+        codec_times(mcf, CODEC_DIR, smi)
+        codec_training(mcf, CODEC_DIR, dev)
+        export = str(CODEC_DIR / "fsrgan.dgt")
+        export_generator(export, "fsrgan", 4, models["fsrgan"])
+        codec_cli(mcf, models["fsrgan"], export, CODEC_DIR, dev)
+        root = CODEC_DIR / "qdata"
+        with contextlib.redirect_stdout(io.StringIO()):
+            quality_table.make_corpus(str(root), 0, CODEC_VAL)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            lines = cross_oracle_eval.main([
+                "--model", export, "--data_root", str(root), "--qs",
+                str(CODEC_Q)])
+        tool_s = time.perf_counter() - t
+        values = [float(v) for line in lines if line.startswith("| ")
+                  and not line.startswith("| oracle")
+                  for v in re.findall(r"[-+]?\d+\.\d+", line)]
+        if len(values) != 2 * 6 or not all(map(math.isfinite, values)):
+            raise AssertionError(f"cross-oracle table: {lines}")
+        print(f"  cross_oracle_eval on the card (seeded fsrgan, {CODEC_VAL} "
+              f"val images, q {CODEC_Q}, {tool_s:.1f} s):")
+        for line in lines[2:]:
+            print(f"    {line}")
+    finally:
+        shutil.rmtree(CODEC_DIR, ignore_errors=True)
+    print(f"  phase 4l took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -4132,6 +4386,8 @@ def main() -> None:
     quality_phase(smi)
     # ---- phase 4k: a .dgt to the reference's .h5; the engine profiles
     export_phase(models, smi)
+    # ---- phase 4l: the port's image codec; training and the CLI on images
+    codec_phase(models, smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

@@ -6,8 +6,9 @@ batch at random and yields (B, crop, crop, 3) f32 batches; the
 degradation runs on the device (data/degrade.py).
 
 Decoding follows the JAX package's order: ``.npy`` read directly, else
-the native libjpeg/libpng codec (data/native.py, built from the
-repository's native/imgcodec.cpp), else cv2, else PIL.
+the port's own codec (data/native.py: JPEG and PNG from the package's C++
+and Python, byte-equal to the JAX package's libjpeg/libpng decode, needing
+only g++), else cv2, else PIL, which now see only other formats.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ def list_images(image_dir: str) -> list[str]:
 
 
 def decoder() -> str:
-    """The decoder decode_image uses for an image file here: "native",
-    "cv2", "PIL" or "none"."""
+    """The decoder decode_image uses for a JPEG or PNG file here:
+    "native" (the port's codec), else "cv2", "PIL" or "none"."""
     if native.available():
         return "native"
     if _cv2() is not None:
@@ -63,9 +64,10 @@ def decoder() -> str:
 
 def decode_image(path: str) -> np.ndarray:
     """Decode to RGB float32 [0, 1] (HWC): ``.npy`` directly (uint8 / 255,
-    the first three channels), else by the native codec (a file it cannot
-    read goes on to the next), else by cv2, else by PIL; without any a
-    RuntimeError that names ``.npy``."""
+    the first three channels), else by the port's codec (JPEG and PNG: a
+    JPEG or PNG file it refuses raises an IOError and goes to no other
+    decoder), else by cv2, else by PIL; without any a RuntimeError that
+    names ``.npy``."""
     if path.endswith(".npy"):
         img = np.load(path)
         if img.dtype == np.uint8:
@@ -74,6 +76,9 @@ def decode_image(path: str) -> np.ndarray:
     img = native.decode(path)
     if img is not None:
         return img.astype(np.float32) / 255.0
+    if native.available() and native.is_jpeg_or_png(path):
+        raise IOError(f"cannot decode {path}: the port's image codec "
+                      "refuses this JPEG or PNG file (data/native.py)")
     cv2 = _cv2()
     if cv2 is not None:
         bgr = cv2.imread(path, cv2.IMREAD_COLOR)
@@ -83,8 +88,9 @@ def decode_image(path: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:
-        raise RuntimeError(f"cannot decode {path}: no image decoder (the "
-                           "native codec, cv2 or PIL) is available; give "
+        raise RuntimeError(f"cannot decode {path}: the port's codec reads "
+                           "JPEG and PNG, and no other decoder (cv2 or "
+                           "PIL) is available; give "
                            "the image as .npy "
                            "(HWC, uint8 or float in [0, 1])") from None
     with Image.open(path) as im:

@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from denoise_gan_tpu_torch.data import native
 from denoise_gan_tpu_torch.data.pipeline import decode_image
 from denoise_gan_tpu_torch.infer.fast import build_fast_forward
 from denoise_gan_tpu_torch.infer.tile import tiled_apply
@@ -51,11 +52,17 @@ def upscales(config: dict) -> bool:
 
 def save_image_bgr(path: str, rgb01: np.ndarray) -> None:
     """clip(x * 255) as uint8 (truncated, as the JAX CLI): ``.npy`` as the
-    RGB array; else by cv2 (BGR) or PIL, whichever is installed; without
-    either a RuntimeError that names ``.npy``."""
+    RGB array; ``.png``, ``.jpg`` and ``.jpeg`` by the port's codec
+    (data/native.py::encode: PNG lossless, JPEG the bytes cv2.imwrite
+    writes at its defaults, quality 95 and 4:2:0); else by cv2 (BGR) or
+    PIL, whichever is installed; without either a RuntimeError that names
+    ``.npy``."""
     arr = np.clip(rgb01 * 255.0, 0, 255).astype(np.uint8)
     if path.endswith(".npy"):
         np.save(path, arr)
+        return
+    if path.lower().endswith((".png", *native.JPEG_SUFFIXES)):
+        native.encode(path, arr)
         return
     try:
         import cv2

@@ -13,6 +13,13 @@ antialias=False)``: the Keys kernel with a = -0.5 at half-pixel centres,
 where taps outside the image are dropped and the rest renormalised.
 ``torch.nn.functional.interpolate(mode="bicubic")`` takes a = -0.75 and
 clamps indices at the border, so it computes another function.
+
+``resize_bicubic_tf`` is TensorFlow 2's ``tf.image.resize(method=
+"bicubic")`` (antialias=False): the ResizeBicubic kernel with half-pixel
+centres, the Keys kernel (a = -0.5) read from its 1024-step table, taps
+outside the image dropped and the rest renormalised, in f32, rows first.
+It never antialiases, where ``jax.image.resize`` would on a downscale with
+antialias=True.
 """
 
 from __future__ import annotations
@@ -119,6 +126,71 @@ def resize_bicubic(image: torch.Tensor, height: int, width: int
     ``jax.image.resize(method="cubic", antialias=False)`` (see the module
     docstring)."""
     return resize_axes(image, {image.ndim - 3: height, image.ndim - 2: width})
+
+
+TF_TABLE_SIZE = 1024     # tensorflow/core/kernels/image/resize_bicubic_op.cc
+
+
+@functools.lru_cache(maxsize=1)
+def _tf_cubic_table() -> np.ndarray:
+    """ResizeBicubic's (1025, 2) f32 table of the Keys kernel (a = -0.5)
+    at x = i / 1024 and at x + 1, computed in double as its
+    InitCoeffsTable."""
+    a = -0.5
+    x = np.arange(TF_TABLE_SIZE + 1, dtype=np.float64) / TF_TABLE_SIZE
+    near = ((a + 2) * x - (a + 3)) * x * x + 1
+    x = x + 1.0
+    far = ((a * x - 5 * a) * x + 8 * a) * x - 4 * a
+    return np.stack([near, far], axis=1).astype(np.float32)
+
+
+def _tf_bicubic_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """(indices, weights), each (n_out, 4), of one axis of ResizeBicubic
+    with half-pixel centres, in its f32 arithmetic (GetWeightsAndIndices
+    with the Keys table): the sample (j + 0.5) * (n_in / n_out) - 0.5, the
+    table row lrintf(frac * 1024), taps outside the image weighted 0, the
+    weights renormalised by their sum."""
+    f32 = np.float32
+    table = _tf_cubic_table()
+    scale = f32(n_in) / f32(n_out)
+    x = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+    loc = np.floor(x)
+    offset = np.rint((x - loc) * f32(TF_TABLE_SIZE)).astype(np.int64)
+    loc = loc.astype(np.int64)
+    w = np.stack([table[offset, 1], table[offset, 0],
+                  table[TF_TABLE_SIZE - offset, 0],
+                  table[TF_TABLE_SIZE - offset, 1]], axis=1)
+    idx = loc[:, None] + np.arange(-1, 3)
+    w = np.where((idx >= 0) & (idx < n_in), w, f32(0)).astype(f32)
+    total = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]
+    ok = np.abs(total) >= f32(1000.0) * np.finfo(f32).tiny
+    inv = f32(1.0) / np.where(ok, total, f32(1.0))
+    w = np.where(ok[:, None], w * inv[:, None], w).astype(f32)
+    return np.clip(idx, 0, n_in - 1), w
+
+
+def _tf_axis(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """One axis of ResizeBicubic: each output the four taps' weighted sum,
+    added in the kernel's order."""
+    idx, w = _tf_bicubic_taps(x.shape[axis], n)
+    idx = torch.from_numpy(idx).to(x.device)
+    w = torch.from_numpy(w).to(x.device, x.dtype)
+    shape = [1] * x.ndim
+    shape[axis] = n
+    out = None
+    for k in range(4):
+        term = x.index_select(axis, idx[:, k]) * w[:, k].reshape(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def resize_bicubic_tf(image: torch.Tensor, height: int, width: int
+                      ) -> torch.Tensor:
+    """``tf.image.resize(image, (height, width), method="bicubic")`` of a
+    float HWC or NHWC image, in f32 (see the module docstring)."""
+    x = image.float()
+    x = _tf_axis(x, x.ndim - 3, height)
+    return _tf_axis(x, x.ndim - 2, width)
 
 
 def resize_with_crop_or_pad(image: torch.Tensor, th: int, tw: int

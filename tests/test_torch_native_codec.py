@@ -1,10 +1,13 @@
-"""The port's native codec (denoise_gan_tpu_torch/data/native.py) against
-the JAX package's binding of the same source (denoise_gan_tpu/data/
-native.py): JPEG and PNG files written by PIL decode byte-equal, the
-libjpeg round trip is byte-equal at two qualities, the port's
-decode_image equals the JAX decode_image, and the port's build leaves
+"""The port's own image codec (denoise_gan_tpu_torch/data/native.py: its
+C++ native/imgcodec.cpp and data/png.py, no libjpeg or libpng) against the
+JAX package's libjpeg/libpng binding (denoise_gan_tpu/data/native.py):
+JPEG and PNG files written by PIL decode byte-equal, the libjpeg round
+trip is byte-equal at two qualities, the port's decode_image equals the
+JAX decode_image, and the port's build (into its own _build/) leaves
 native/libimgcodec.so (which the JAX binding rebuilds in place) as it
-was.  The port runs in a child process (tests/torch_process.py)."""
+was.  The port runs in a child process (tests/torch_process.py).
+tests/test_torch_codec.py holds the codec to libjpeg and libpng on every
+committed fixture."""
 
 import os
 from pathlib import Path

@@ -51,7 +51,9 @@ def _sources():
         REPO / "tests" / "torch_side_parallel.py",
         REPO / "tests" / "torch_side_keras_h5.py",
         REPO / "tests" / "torch_side_quality.py",
-        REPO / "tests" / "torch_side_export_h5.py"]
+        REPO / "tests" / "torch_side_export_h5.py",
+        REPO / "tests" / "torch_side_codec.py",
+        REPO / "tests" / "codec_seeds.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
