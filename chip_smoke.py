@@ -349,8 +349,14 @@ Phases, each printed on its own line:
    build against libjpeg or libpng.  Its g++ build into a fresh directory
    (timed), and data/pipeline.py::decode_image's decoder, which must be
    the port's codec; every fixture of tests/data/codec/ decoded, its
-   sha256 the sidecar's (the JAX package's libjpeg/libpng decode; the
-   files libjpeg refuses or reads in part: None or that decode); the
+   sha256 the sidecar's (the JAX package's libjpeg/libpng decode, None
+   where it refuses the file), the cut and corrupt ones that libjpeg and
+   libpng read in part among them (JPEGs cut or with a marker inside a
+   scan, bad Huffman codes, restart markers out of sequence, progressive
+   scans out of order or left incomplete, arithmetic coding; PNGs with a
+   late bad Adler-32, an unended stream, extra data, no IEND); the port's
+   copy of sklearn's china.jpg cut at 50, 90 and 99% of its bytes, each
+   sha256 the sidecar's; the
    exact round trip of tests/codec_seeds.py's seeded images at
    nine qualities and seven sizes, each sha256 the sidecar's.  Host-clock
    times (mean of 3 after one) of a seeded 1356x2040 image written as PNG
@@ -365,6 +371,26 @@ Phases, each printed on its own line:
    at 95.  tools/cross_oracle_eval.py's port on the seeded FSRGAN export
    on the card at q 50 over a 4-image synthetic corpus: its table printed,
    every value finite.
+4m. The natural-photo tools (denoise_gan_tpu_torch/tools/train_natural.py
+   and eval_natural.py; the JAX repository's tools of those names) on the
+   package's photographs and textures (assets/), read by the port's
+   codec: train_natural build (456 tiles of 288^2, counted on the disk),
+   a cut train_natural train on the card (autoencoder, crop 256, batch
+   4, q 10, NATURAL_STEPS steps), then eval_natural --photos hopper --qs
+   10,30,50 and eval_natural on all three photos: both tables printed,
+   their crop counts 9 and 25, every value finite; no hand kernel
+   launched; each step's time, beside the card's name and power limit.
+4n. cv2's paths, where cv2 imports (where it does not: that printed, and
+   the CLIs' own refusals).  Six 1080p frames written as mp4 by cv2; the
+   video CLI on it with --kernel_tail 1 to a 4K mp4 on the card (FSRGAN's
+   seeded export, w8a8), launch counts zeroed just before and read just
+   after: K1 once a frame; the mp4 read back by cv2 (6 frames of
+   4320x7680); the FSRGAN kernel engine called here on cv2's decoded
+   frames (calibrated on the CLI's frames) equal to the CLI's frames
+   before encoding.  unit_test_torch.py --denoiser nlmeans on a seeded
+   256^2 PNG (the seeded autoencoder's export on the card): its denoised
+   PNG equal to the same cv2.fastNlMeansDenoisingColored call on the CPU
+   on its *_sr.png.
 5. times: per engine, frames/s (kernel vs twin tail, w8a8 and qh8), tail
    ms/frame (kernel vs twin, each mode and epilogue, and the bf16 tail
    module on cuDNN), quantize_h and body ms/frame; K3's six launches per
@@ -458,6 +484,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from denoise_gan_tpu_torch import unit_test
 from denoise_gan_tpu_torch.infer import engine as generic
 from denoise_gan_tpu_torch.infer import kernel_engine as ke
 from denoise_gan_tpu_torch.infer import image as image_cli
@@ -4075,6 +4102,7 @@ CODEC_CLI_HW = (256, 384)              # the image CLI's input
 CODEC_Q = 50                           # the cross-oracle table's quality
 CODEC_VAL = 4
 CODEC_TIMED = 3                        # host-clock calls, after one
+PHOTOS = ROOT / "denoise_gan_tpu_torch" / "assets" / "photos"
 
 
 def codec_seeds():
@@ -4119,18 +4147,26 @@ def codec_build() -> None:
 
 
 def codec_fixtures(mcf) -> None:
-    """Every committed fixture and the seeded round trips against the
-    sidecar's sha256s."""
+    """Every committed fixture, china.jpg's cuts and the seeded round
+    trips against the sidecar's sha256s."""
     side = json.loads((CODEC_FIXTURES / "codec.json").read_text())
     refused = 0
     for name, entry in sorted(side["files"].items()):
         got = mcf.digest(native.decode(str(CODEC_FIXTURES / name)))
-        if name.startswith("bad_") and got is None:
-            refused += 1
-            continue
         if got != entry["sha256"]:
             raise AssertionError(f"codec fixture {name}: sha256 {got}, the "
                                  f"sidecar's {entry['sha256']}")
+        refused += got is None
+    photo = PHOTOS / "china.jpg"
+    data = photo.read_bytes()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        for frac, want in sorted(side["photo_cuts"].items()):
+            cut = Path(d) / "cut.jpg"
+            cut.write_bytes(data[:int(len(data) * float(frac))])
+            img = native.decode(str(cut))
+            if img is None or mcf.digest(img) != want:
+                raise AssertionError(f"{photo.name} cut at {frac}: the "
+                                     "codec's image is not libjpeg's")
     n_rt = 0
     for key, want in sorted(side["roundtrip"].items()):
         hw, q = key.split("_q")
@@ -4142,8 +4178,12 @@ def codec_fixtures(mcf) -> None:
                                  f"the sidecar's {want}")
         n_rt += 1
     print(f"  {len(side['files'])} fixtures decoded, each sha256 the "
-          f"sidecar's (libjpeg/libpng; {refused} refused files None); "
-          f"{n_rt} seeded round trips, each sha256 the sidecar's")
+          f"sidecar's (libjpeg/libpng; {refused} refused files None), "
+          f"{len(side['partial'])} of them cut or corrupt files libjpeg and "
+          f"libpng read in part or refuse; {photo.name} cut at "
+          f"{', '.join(sorted(side['photo_cuts']))} of its bytes, each "
+          f"sha256 the sidecar's; {n_rt} seeded round trips, each sha256 "
+          "the sidecar's")
 
 
 def codec_times(mcf, directory: Path, smi: str) -> None:
@@ -4294,6 +4334,252 @@ def codec_phase(models: dict, smi: str) -> None:
     print(f"  phase 4l took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the natural-photo tools
+
+NATURAL_DIR = ROOT / "_natural_smoke"  # the phase's files (deleted after)
+NATURAL_TILES = 456                    # with the textures (JAX: the same)
+NATURAL_STEPS = 228                    # two epochs of 114 at batch 4
+NATURAL_QS = "10,30,50"
+
+
+def eval_table(what: str, lines: list[str], crops: int) -> None:
+    """An eval_natural table: its crop count, three rows of finite
+    values, printed."""
+    rows = [line for line in lines if re.match(r"\| \d+ \|", line)]
+    values = [float(v) for line in rows
+              for v in re.findall(r"[-+]?\d+\.\d+", line)]
+    if f"crops={crops} " not in lines[0] or len(rows) != 3 or \
+            not values or not all(map(math.isfinite, values)):
+        raise AssertionError(f"{what}: {lines}")
+    for line in lines:
+        print(f"    {line}")
+
+
+def natural_phase(smi: str) -> None:
+    """Phase 4m (see the module docstring)."""
+    from denoise_gan_tpu_torch.tools import eval_natural, train_natural
+    t0 = time.perf_counter()
+    print(f"phase 4m natural-photo tools [{smi}]:")
+    shutil.rmtree(NATURAL_DIR, ignore_errors=True)
+    NATURAL_DIR.mkdir()
+    cwd = os.getcwd()
+    try:
+        root = str(NATURAL_DIR / "nat")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_natural.main(["build", "--data_root", root])
+        build_s = time.perf_counter() - t
+        n = len(os.listdir(os.path.join(root, "train", "photos")))
+        if n != NATURAL_TILES:
+            raise AssertionError(f"train_natural build wrote {n} tiles, "
+                                 f"not {NATURAL_TILES}")
+        print(f"  build: {n} tiles in {build_s:.1f} s")
+        os.chdir(NATURAL_DIR)
+        reset_counts()
+        t = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = train_natural.main([
+                "train", "--data_root", root, "--steps", str(NATURAL_STEPS),
+                "--batch", "4", "--crop", "256", "--q", "10"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        said = [line for line in out.getvalue().splitlines()
+                if line.startswith(("natural train:", "export:"))]
+        export = NATURAL_DIR / "models" / "nat_autoencoder.dgt"
+        if fired() or state.step != NATURAL_STEPS or not export.exists():
+            raise AssertionError(f"train_natural train: launches "
+                                 f"{fired()}, {state.step} steps, {said}")
+        print(f"  {said[0]}")
+        print(f"  train: {state.step} steps on the card in {train_s:.1f} s "
+              f"with set-up ({train_s / state.step * 1e3:.1f} ms a step "
+              f"with the data pipeline) [{smi}]; {said[-1]}")
+        for what, photos, crops in (("hopper", ["--photos", "hopper"], 9),
+                                    ("all three photos", [], 25)):
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                lines = eval_natural.main(["--model", str(export), "--qs",
+                                           NATURAL_QS, *photos])
+            torch.cuda.synchronize()
+            print(f"  eval_natural, {what} ({time.perf_counter() - t:.1f} "
+                  "s):")
+            eval_table(what, lines, crops)
+        if fired():
+            raise AssertionError(f"eval_natural launched hand kernels: "
+                                 f"{fired()}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(NATURAL_DIR, ignore_errors=True)
+    print(f"  phase 4m took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 4n: cv2's paths, on the card
+
+CV2_DIR = ROOT / "_cv2_smoke"          # the phase's files (deleted after)
+NLMEANS_HW = 256
+
+
+class RecordingWriter:
+    """A video writer's stand-in that keeps a copy of each frame it is
+    given and passes the frame on."""
+
+    def __init__(self, writer):
+        self.writer, self.frames = writer, []
+
+    def write(self, frame):
+        self.frames.append(np.array(frame, copy=True))
+        self.writer.write(frame)
+
+    def release(self):
+        self.writer.release()
+
+
+def cv2_refusals(models: dict) -> None:
+    """Without cv2: the CLIs' own refusals of an mp4 and of nlmeans."""
+    CV2_DIR.mkdir()
+    export = str(CV2_DIR / "fsrgan.dgt")
+    export_generator(export, "fsrgan", 4, models["fsrgan"])
+    video = str(CV2_DIR / "in.avi")
+    writer = avi.VideoWriter(video, 25.0, (WIDTH, HEIGHT))
+    writer.write(cli_frames(np.random.default_rng(SEED + 5))[0])
+    writer.release()
+    for what, call in (
+            ("video CLI, mp4 out", lambda: video_cli.main([
+                "--input_video", video, "--output_video",
+                str(CV2_DIR / "out.mp4"), "--model", export])),
+            ("unit_test nlmeans", lambda: unit_test.denoise_nlmeans(
+                np.zeros((8, 8, 3), np.float32)))):
+        try:
+            call()
+        except RuntimeError as exc:
+            print(f"  {what}: refused: {exc}")
+        else:
+            raise AssertionError(f"{what} ran without cv2")
+
+
+def cv2_video(cv2, models: dict, smi: str) -> None:
+    """The video CLI on an mp4 that cv2 wrote, through K1, to a 4K mp4."""
+    dev = next(models["fsrgan"].parameters()).device
+    fam = FAMILIES[0]
+    frames = cli_frames(np.random.default_rng(SEED + 5))
+    video, out = str(CV2_DIR / "in.mp4"), str(CV2_DIR / "out.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
+                             (WIDTH, HEIGHT))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    cap = cv2.VideoCapture(video)
+    decoded = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        decoded.append(f)
+    cap.release()
+    export = str(CV2_DIR / "fsrgan.dgt")
+    export_generator(export, "fsrgan", 4, models["fsrgan"])
+    recorders = []
+    open_writer = video_cli.open_writer
+
+    def recording(*args, **kw):
+        recorders.append(RecordingWriter(open_writer(*args, **kw)))
+        return recorders[-1]
+
+    video_cli.open_writer = recording
+    reset_counts()
+    try:
+        t = time.perf_counter()
+        result = video_cli.main(["--input_video", video, "--output_video",
+                                 out, "--model", export, "--score", "0",
+                                 "--kernel_tail", "1"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+    finally:
+        video_cli.open_writer = open_writer
+    want, launched = {fam.key(fam.kernel, "w8a8"): len(frames)}, fired()
+    if launched != want or len(decoded) != len(frames):
+        raise AssertionError(f"mp4 CLI: launches {launched}, expected "
+                             f"{want}; cv2 decoded {len(decoded)} frames")
+    cap = cv2.VideoCapture(out)
+    back = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        back.append(f.shape)
+    cap.release()
+    if back != [(4 * HEIGHT, 4 * WIDTH, 3)] * len(frames):
+        raise AssertionError(f"the 4K mp4 reads back as {back}")
+    calib = [torch.from_numpy(f).to(dev) for f in
+             video_cli._peek_calib_frames(video, 0)]
+    engine = fam.build(models["fsrgan"], HEIGHT, WIDTH, u8_input=True,
+                       bgr_input=True, bgr=True, q8_calib_frame=calib)
+    got = recorders[0].frames
+    direct = [engine(torch.from_numpy(f).to(dev)).cpu().numpy()
+              for f in decoded]
+    same_frames("mp4 CLI, fsrgan kernel engine w8a8, bgr out", got, direct)
+    print(f"  video CLI, {len(frames)} {HEIGHT}x{WIDTH} frames of an mp4 "
+          f"cv2 wrote -> a {4 * HEIGHT}x{4 * WIDTH} mp4 (mp4v): "
+          f"{result['fps']:.2f} frames/s by the host clock ({cli_s:.1f} s "
+          f"with set-up) [{smi}], launches {launched}; read back by cv2: "
+          f"{len(back)} frames")
+
+
+def cv2_nlmeans(cv2, dev) -> None:
+    """unit_test_torch.py --denoiser nlmeans on a seeded PNG."""
+    rng = np.random.default_rng(SEED + 6)
+    ae = build_generator("autoencoder", device=dev)
+    ae = from_jax_params(ae, *seeded_flax_tree(ae, rng))
+    export = str(CV2_DIR / "autoencoder.dgt")
+    export_generator(export, "autoencoder", 1, ae)
+    images = CV2_DIR / "images"
+    images.mkdir()
+    img = (rng.random((NLMEANS_HW, NLMEANS_HW, 3)) * 255).astype(np.uint8)
+    native.encode(str(images / "a.png"), img)
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        unit_test.main(["--image_dir", str(images), "--model", export,
+                        "--crop", str(NLMEANS_HW), "--denoiser", "nlmeans"])
+    run_s = time.perf_counter() - t
+    sr = native.decode(str(images / "a_sr.png"))
+    got = native.decode(str(images / "a_sr_denoise.png"))
+    cpu = cv2.fastNlMeansDenoisingColored(sr, None, 10.0, 10.0, 7, 21)
+    want = np.clip(cpu.astype(np.float32) / 255.0 * 255.0, 0,
+                   255).astype(np.uint8)
+    if fired() or got is None or not np.array_equal(got, want):
+        raise AssertionError(f"nlmeans: launches {fired()}, the denoised "
+                             "PNG is not the CPU call's")
+    print(f"  unit_test_torch.py --denoiser nlmeans, {NLMEANS_HW}^2 seeded "
+          f"PNG, the autoencoder on the card ({run_s:.1f} s): the denoised "
+          f"PNG equal to cv2.fastNlMeansDenoisingColored on the CPU "
+          f"({int((got != sr).any(axis=2).sum())} pixels changed by it)")
+
+
+def cv2_phase(models: dict, smi: str) -> None:
+    """Phase 4n (see the module docstring)."""
+    t0 = time.perf_counter()
+    print(f"phase 4n cv2's paths [{smi}]:")
+    shutil.rmtree(CV2_DIR, ignore_errors=True)
+    try:
+        try:
+            import cv2
+        except ImportError as exc:
+            print(f"  cv2 does not import here ({exc}): the mp4 and "
+                  "nlmeans paths are not run")
+            cv2_refusals(models)
+            return
+        print(f"  cv2 {cv2.__version__}")
+        CV2_DIR.mkdir()
+        cv2_video(cv2, models, smi)
+        cv2_nlmeans(cv2, next(models["fsrgan"].parameters()).device)
+    finally:
+        shutil.rmtree(CV2_DIR, ignore_errors=True)
+        print(f"  phase 4n took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # ---- phase 1: device
     dev = require_cuda()
@@ -4388,6 +4674,10 @@ def main() -> None:
     export_phase(models, smi)
     # ---- phase 4l: the port's image codec; training and the CLI on images
     codec_phase(models, smi)
+    # ---- phase 4m: the natural-photo tools on the package's photographs
+    natural_phase(smi)
+    # ---- phase 4n: cv2's mp4 and NL-means paths
+    cv2_phase(models, smi)
 
     # ---- phase 5: times
     print(f"phase 5 times [{smi}]:")

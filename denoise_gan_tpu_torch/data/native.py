@@ -6,11 +6,13 @@ No libjpeg, libpng, cv2 or PIL: one codec on every machine.  The API is
 the JAX package's binding (denoise_gan_tpu/data/native.py), whose libjpeg
 and libpng results it gives byte for byte, plus :func:`encode`.
 
-Read: baseline, extended-Huffman and progressive JPEG (gray or YCbCr/RGB,
-any integral sampling), every PNG colour type and depth, Adam7 included.
-Refused (None): arithmetic-coded, lossless, 12-bit, CMYK/YCCK and other
-2- or 4-component JPEG, corrupt or truncated files (see the source's
-header and data/png.py).
+Read: baseline, extended and progressive JPEG, Huffman or arithmetic
+coded (gray or YCbCr/RGB, any integral sampling), every PNG colour type and
+depth, Adam7 included; a cut or corrupt file as libjpeg or libpng reads it
+where they only warn.  Refused (None) where they refuse it too: lossless,
+12-bit, CMYK/YCCK and other 2- or 4-component JPEG, files cut in their
+headers, a bad CRC on a critical PNG chunk (see the source's header and
+data/png.py).
 
 The library is compiled at first use (``g++ -std=c++17 -O3 -shared -fPIC``,
 no ``-l`` flag) into the package's ``_build/`` (ignored by git), under a

@@ -1,8 +1,9 @@
-// The port's image codec: JPEG decoding (baseline, extended Huffman and
-// progressive), JPEG encoding with libjpeg's defaults, the exact libjpeg
-// encode + decode round trip, and PNG's row filters and Adam7 passes.  C++17
-// and the standard library only: no libjpeg, libpng or zlib.  PNG's chunks,
-// CRCs, inflate and deflate are in Python (data/png.py).
+// The port's image codec: JPEG decoding (baseline, extended and
+// progressive, Huffman or arithmetic coding), JPEG encoding with libjpeg's
+// defaults, the exact libjpeg encode + decode round trip, and PNG's row
+// filters and Adam7 passes.  C++17 and the standard library only: no
+// libjpeg, libpng or zlib.  PNG's chunks, CRCs, inflate and deflate are in
+// Python (data/png.py).
 //
 // The arithmetic is that of libjpeg-turbo 2.1's default paths on x86-64, so
 // that a file decodes to the bytes libjpeg gives:
@@ -18,19 +19,24 @@
 //     jcprepct.c's edge replication, jfdctint.c and jcdctmgr.c's reciprocal
 //     quantiser, at jpeg_set_defaults + jpeg_set_quality(q, TRUE): 4:2:0,
 //     the Annex K tables, JFIF APP0, baseline Huffman coding.
+// Corrupt files read as libjpeg reads them where it only warns: data that
+// ends or meets a marker inside a scan (zero bits, then the rest of the
+// segment left alone), bad Huffman codes, restart markers out of sequence,
+// progressive scans out of order, a component no scan reached (gray),
+// progressive files left incomplete (block smoothing), arithmetic codes
+// that overflow.
 // The algorithms follow libjpeg-turbo, which carries this notice:
 //   This software is based in part on the work of the Independent JPEG
 //   Group.  Copyright (C) 1991-1998, Thomas G. Lane; libjpeg-turbo
 //   Copyright (C) 2009-2023, D. R. Commander.  Distributed under the IJG
 //   license and the Modified (3-clause) BSD License.
 //
-// Refused (the entry points return -1, the Python binding None): arithmetic
-// coding, lossless and hierarchical frames, precision other than 8 bits,
-// 2- and 4-component files, sampling ratios that are not integral, a file
-// that ends or hits a marker inside its entropy-coded data, bad Huffman
-// codes, restart markers out of sequence, progressive scans out of order,
-// and progressive files whose first AC coefficients stay incomplete (where
-// libjpeg would smooth the blocks).
+// Refused (the entry points return -1, the Python binding None), as libjpeg
+// refuses them: lossless and hierarchical frames, precision other than 8
+// bits, 2- and 4-component files (CMYK, YCCK), sampling ratios that are not
+// integral, files that end or break inside their headers before the first
+// scan, a second scan in a one-scan sequential file, and the marker
+// segments libjpeg stops at.
 //
 // Built by data/native.py: g++ -std=c++17 -O3 -shared -fPIC imgcodec.cpp
 
@@ -38,6 +44,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <initializer_list>
 #include <vector>
 
 namespace {
@@ -187,40 +194,50 @@ bool derive_decoder(const HuffSpec& s, bool is_dc, HuffDecoder* d) {
   return true;
 }
 
-// The entropy-coded bytes of a scan: FF 00 is a data FF, FF FF... fill
-// bytes, any other FF xx a marker.  Past a marker (or the end of the data)
-// the reader feeds zero bits; a decode that consumes one of them fails.
-struct BitReader {
+// The file's bytes, and past its end what libjpeg's memory source gives
+// there (jdatasrc.c's fill_mem_input_buffer, with a warning): a fake EOI
+// marker, FF D9, again and again.
+struct Source {
   const uint8_t* data;
   size_t len;
+  int at(size_t p) const {
+    return p < len ? data[p] : ((p - len) & 1) ? 0xD9 : 0xFF;
+  }
+};
+
+// The entropy-coded bytes of a scan: FF 00 is a data FF, FF FF... fill
+// bytes before a marker.  At a marker (libjpeg's unread_marker; at the end
+// of the file the fake EOI) the reader stops and feeds zero bits.  The
+// first decode that consumes one of them makes the data insufficient
+// (jdhuff.c's jpeg_fill_bit_buffer: JWRN_HIT_MARKER, once); the decode
+// goes on with the zeros, and the entropy decoders leave the rest of the
+// segment's MCUs alone.
+struct BitReader {
+  Source src;
   size_t pos;
+  int marker = 0;
   uint64_t acc = 0;
-  int nbits = 0;
-  int npad = 0;
-  bool stopped = false;
-  bool bad = false;
+  int nbits = 0;  // bits in acc
+  int npad = 0;   // of which zero bits fed past a marker
+  bool insufficient = false;
 
   void fill() {
     while (nbits <= 56) {
       int byte = 0;
-      if (!stopped) {
-        if (pos >= len) {
-          stopped = true;
-        } else if (data[pos] != 0xFF) {
-          byte = data[pos++];
-        } else {
-          size_t p = pos + 1;
-          while (p < len && data[p] == 0xFF) ++p;
-          if (p < len && data[p] == 0x00) {
+      if (!marker) {
+        byte = src.at(pos++);
+        if (byte == 0xFF) {
+          do byte = src.at(pos++);
+          while (byte == 0xFF);
+          if (byte == 0) {
             byte = 0xFF;
-            pos = p + 1;
           } else {
-            stopped = true;
-            pos = p - 1;  // at the marker's last FF
+            marker = byte;
+            byte = 0;
           }
         }
       }
-      if (stopped) npad += 8;
+      if (marker) npad += 8;
       acc = (acc << 8) | static_cast<uint64_t>(byte);
       nbits += 8;
     }
@@ -231,7 +248,10 @@ struct BitReader {
   }
   void consume(int n) {
     nbits -= n;
-    if (nbits < npad) bad = true;
+    if (nbits < npad) {
+      insufficient = true;
+      npad = nbits;
+    }
   }
   int bits(int n) {
     if (n == 0) return 0;
@@ -240,8 +260,9 @@ struct BitReader {
     return static_cast<int>(v);
   }
   int bit() { return bits(1); }
+  // a code that matches no symbol takes 17 bits and reads as 0
+  // (jpeg_huff_decode's JWRN_HUFF_BAD_CODE)
   int decode(const HuffDecoder& t) {
-    if (nbits < 16) fill();
     const uint16_t e = t.look[peek(kLookBits)];
     if (e) {
       consume(e >> 8);
@@ -253,19 +274,134 @@ struct BitReader {
       ++l;
       code = static_cast<int32_t>(peek(l));
     }
-    if (l > 16) {
-      bad = true;
-      return 0;
-    }
     consume(l);
+    if (l > 16) return 0;
     return t.vals[(code + t.valoffset[l]) & 0xFF];
   }
-  // drop the bits left; the byte position stays where the data ended
-  void reset() {
+  // drop the bits left (a restart); the byte position stays
+  void discard() {
     acc = 0;
     nbits = 0;
     npad = 0;
-    stopped = false;
+  }
+};
+
+// ------------------------------------------------- arithmetic decoding
+// ITU T.81 Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS of
+// each probability state, and libjpeg's state 113, a fixed Qe of 0x5a1d
+// (jaricom.c's entry for bits coded at an even chance).
+struct QeState {
+  uint16_t qe;
+  uint8_t nlps, nmps, swtch;
+};
+constexpr QeState kQe[114] = {
+    {0x5a1d,   1,   1, 1}, {0x2586,  14,   2, 0}, {0x1114,  16,   3, 0},
+    {0x080b,  18,   4, 0}, {0x03d8,  20,   5, 0}, {0x01da,  23,   6, 0},
+    {0x00e5,  25,   7, 0}, {0x006f,  28,   8, 0}, {0x0036,  30,   9, 0},
+    {0x001a,  33,  10, 0}, {0x000d,  35,  11, 0}, {0x0006,   9,  12, 0},
+    {0x0003,  10,  13, 0}, {0x0001,  12,  13, 0}, {0x5a7f,  15,  15, 1},
+    {0x3f25,  36,  16, 0}, {0x2cf2,  38,  17, 0}, {0x207c,  39,  18, 0},
+    {0x17b9,  40,  19, 0}, {0x1182,  42,  20, 0}, {0x0cef,  43,  21, 0},
+    {0x09a1,  45,  22, 0}, {0x072f,  46,  23, 0}, {0x055c,  48,  24, 0},
+    {0x0406,  49,  25, 0}, {0x0303,  51,  26, 0}, {0x0240,  52,  27, 0},
+    {0x01b1,  54,  28, 0}, {0x0144,  56,  29, 0}, {0x00f5,  57,  30, 0},
+    {0x00b7,  59,  31, 0}, {0x008a,  60,  32, 0}, {0x0068,  62,  33, 0},
+    {0x004e,  63,  34, 0}, {0x003b,  32,  35, 0}, {0x002c,  33,   9, 0},
+    {0x5ae1,  37,  37, 1}, {0x484c,  64,  38, 0}, {0x3a0d,  65,  39, 0},
+    {0x2ef1,  67,  40, 0}, {0x261f,  68,  41, 0}, {0x1f33,  69,  42, 0},
+    {0x19a8,  70,  43, 0}, {0x1518,  72,  44, 0}, {0x1177,  73,  45, 0},
+    {0x0e74,  74,  46, 0}, {0x0bfb,  75,  47, 0}, {0x09f8,  77,  48, 0},
+    {0x0861,  78,  49, 0}, {0x0706,  79,  50, 0}, {0x05cd,  48,  51, 0},
+    {0x04de,  50,  52, 0}, {0x040f,  50,  53, 0}, {0x0363,  51,  54, 0},
+    {0x02d4,  52,  55, 0}, {0x025c,  53,  56, 0}, {0x01f8,  54,  57, 0},
+    {0x01a4,  55,  58, 0}, {0x0160,  56,  59, 0}, {0x0125,  57,  60, 0},
+    {0x00f6,  58,  61, 0}, {0x00cb,  59,  62, 0}, {0x00ab,  61,  63, 0},
+    {0x008f,  61,  32, 0}, {0x5b12,  65,  65, 1}, {0x4d04,  80,  66, 0},
+    {0x412c,  81,  67, 0}, {0x37d8,  82,  68, 0}, {0x2fe8,  83,  69, 0},
+    {0x293c,  84,  70, 0}, {0x2379,  86,  71, 0}, {0x1edf,  87,  72, 0},
+    {0x1aa9,  87,  73, 0}, {0x174e,  72,  74, 0}, {0x1424,  72,  75, 0},
+    {0x119c,  74,  76, 0}, {0x0f6b,  74,  77, 0}, {0x0d51,  75,  78, 0},
+    {0x0bb6,  77,  79, 0}, {0x0a40,  77,  48, 0}, {0x5832,  80,  81, 1},
+    {0x4d1c,  88,  82, 0}, {0x438e,  89,  83, 0}, {0x3bdd,  90,  84, 0},
+    {0x34ee,  91,  85, 0}, {0x2eae,  92,  86, 0}, {0x299a,  93,  87, 0},
+    {0x2516,  86,  71, 0}, {0x5570,  88,  89, 1}, {0x4ca9,  95,  90, 0},
+    {0x44d9,  96,  91, 0}, {0x3e22,  97,  92, 0}, {0x3824,  99,  93, 0},
+    {0x32b4,  99,  94, 0}, {0x2e17,  93,  86, 0}, {0x56a8,  95,  96, 1},
+    {0x4f46, 101,  97, 0}, {0x47e5, 102,  98, 0}, {0x41cf, 103,  99, 0},
+    {0x3c3d, 104, 100, 0}, {0x375e,  99,  93, 0}, {0x5231, 105, 102, 0},
+    {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0}, {0x415e, 103,  99, 0},
+    {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1},
+    {0x5522, 112, 109, 0}, {0x59eb, 112, 111, 1}, {0x5a1d, 113, 113, 0},
+};
+
+// T.81 Annex D's decoder (D.2.4-D.2.6) as jdarith.c runs it: bytes as the
+// Huffman reader takes them, and after a marker zero bytes, which is legal
+// in arithmetic coding (no warning, nothing left undecoded).  ct == -1
+// marks a code that overflowed (JWRN_ARITH_BAD_CODE): the rest of the
+// segment is left alone.
+struct ArithReader {
+  Source src;
+  size_t pos;
+  int marker = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // two bytes to read before the first decision
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  // a decision in the context of statistics bin *st (its state index in
+  // bits 0-6, its more probable symbol in bit 7)
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker) {
+          data = src.at(pos++);
+          if (data == 0xFF) {
+            do data = src.at(pos++);
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const QeState& e = kQe[sv & 0x7F];
+    const int64_t qe = e.qe;
+    const int nl = e.nlps | (e.swtch << 7), nm = e.nmps;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
   }
 };
 
@@ -279,10 +415,13 @@ struct Component {
   int dw = 0, dh = 0;          // downsampled width, height in samples
   int stride = 0, rows = 0;    // allocated blocks a row, block rows
   std::vector<int16_t> coef;   // stride * rows blocks of 64, natural order
-  bool latched = false;
-  uint16_t q[64] = {};
+  bool latched = false;      // its quantisation table, from its first scan
+  uint16_t q[64] = {};       // zero until then: the component reads gray
+  // progressive: the successive-approximation bit of each coefficient
+  // (-1: not yet coded), and its value before the component's last scan
+  // (jdphuff.c's coef_bits and their second half)
   int coef_bits[64];
-  bool scanned = false;
+  int prev_bits[64];
   int16_t* block(int bx, int by) {
     return coef.data() + (static_cast<size_t>(by) * stride + bx) * 64;
   }
@@ -483,14 +622,135 @@ void upsample_row(const Image& im, const Component& c,
   }
 }
 
-// IDCT of every block of the image's components, then upsampling and
-// colour conversion into out (height * width * 3 RGB).
-void output_rgb(Image& im, uint8_t* out) {
+// ------------------------------------------------- progressive smoothing
+// jdcoefct.c's decompress_smooth_data as libjpeg-turbo 2.1 has it: where a
+// progressive file leaves AC 1-9 incomplete, each block's missing low
+// coefficients are estimated from the DC values of its 5x5 neighbourhood
+// (and, where none of AC 1-9 is coded, its DC too); an estimate replaces
+// only a coefficient that is still zero.
+struct Smoothing {
+  int total_rows = 0;   // iMCU rows
+  int last_good = 0;    // the last iMCU row the last scan reached in full
+  int cur[3][10];       // coef_bits of coefficients 0-9 after the scans
+  int prev[3][10];      // and before each component's last scan
+};
+
+// the estimate of a coefficient whose quantiser is qk from num, clamped
+// below 2^al where its first al bits are still to come
+inline int16_t predict(int64_t q00, int64_t qk, int64_t num, int al,
+                       bool clamp) {
+  num *= q00;
+  int64_t pred = num >= 0 ? ((qk << 7) + num) / (qk << 8)
+                          : ((qk << 7) - num) / (qk << 8);
+  if (clamp && al > 0 && pred >= (int64_t{1} << al))
+    pred = (int64_t{1} << al) - 1;
+  return static_cast<int16_t>(num >= 0 ? pred : -pred);
+}
+
+void smooth_plane(Component& c, const int* cur, const int* prev,
+                  const Smoothing& sm, uint8_t* plane) {
+  const size_t pw = static_cast<size_t>(c.bw) * 8;
+  const int last = sm.total_rows - 1, v = c.v, last_col = c.bw - 1;
+  const int64_t q00 = c.q[0];
+  for (int row = 0; row <= last; ++row) {
+    int block_rows = v;
+    if (row == last) {
+      block_rows = c.bh % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    const int* bits = row > sm.last_good ? prev : cur;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    for (int br = 0; br < block_rows; ++br) {
+      const int y = row * v + br;
+      int r[5];
+      r[2] = y;
+      r[1] = (br > 0 || row > 0) ? y - 1 : y;
+      r[0] = (br > 1 || row > 1) ? y - 2 : r[1];
+      r[3] = (br < block_rows - 1 || row < last) ? y + 1 : y;
+      r[4] = (br < block_rows - 2 || row + 1 < last) ? y + 2 : r[3];
+      // dc[i][j]: the DC of row r[i], column bx - 2 + j, as a sliding
+      // register that starts with column 0 everywhere
+      int dc[5][5];
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 5; ++j) dc[i][j] = c.block(0, r[i])[0];
+      for (int bx = 0; bx <= last_col; ++bx) {
+        if (bx == 0 && bx < last_col)
+          for (int i = 0; i < 5; ++i) dc[i][3] = c.block(1, r[i])[0];
+        if (bx + 1 < last_col)
+          for (int i = 0; i < 5; ++i) dc[i][4] = c.block(bx + 2, r[i])[0];
+        const int D01 = dc[0][0], D02 = dc[0][1], D03 = dc[0][2],
+                  D04 = dc[0][3], D05 = dc[0][4], D06 = dc[1][0],
+                  D07 = dc[1][1], D08 = dc[1][2], D09 = dc[1][3],
+                  D10 = dc[1][4], D11 = dc[2][0], D12 = dc[2][1],
+                  D13 = dc[2][2], D14 = dc[2][3], D15 = dc[2][4],
+                  D16 = dc[3][0], D17 = dc[3][1], D18 = dc[3][2],
+                  D19 = dc[3][3], D20 = dc[3][4], D21 = dc[4][0],
+                  D22 = dc[4][1], D23 = dc[4][2], D24 = dc[4][3],
+                  D25 = dc[4][4];
+        int16_t ws[64];
+        std::memcpy(ws, c.block(bx, y), sizeof ws);
+        auto est = [&](int pos, int k, int64_t num) {
+          if (bits[k] != 0 && ws[pos] == 0)
+            ws[pos] = predict(q00, c.q[pos], num, bits[k], true);
+        };
+        est(1, 1, change_dc
+            ? -D01 - D02 + D04 + D05 - 3 * D06 + 13 * D07 - 13 * D09
+              + 3 * D10 - 3 * D11 + 38 * D12 - 38 * D14 + 3 * D15 - 3 * D16
+              + 13 * D17 - 13 * D19 + 3 * D20 - D21 - D22 + D24 + D25
+            : -7 * D11 + 50 * D12 - 50 * D14 + 7 * D15);
+        est(8, 2, change_dc
+            ? -D01 - 3 * D02 - 3 * D03 - 3 * D04 - D05 - D06 + 13 * D07
+              + 38 * D08 + 13 * D09 - D10 + D16 - 13 * D17 - 38 * D18
+              - 13 * D19 + D20 + D21 + 3 * D22 + 3 * D23 + 3 * D24 + D25
+            : -7 * D03 + 50 * D08 - 50 * D18 + 7 * D23);
+        est(16, 3, change_dc
+            ? D03 + 2 * D07 + 7 * D08 + 2 * D09 - 5 * D12 - 14 * D13
+              - 5 * D14 + 2 * D17 + 7 * D18 + 2 * D19 + D23
+            : -D03 + 13 * D08 - 24 * D13 + 13 * D18 - D23);
+        est(9, 4, change_dc
+            ? -D01 + D05 + 9 * D07 - 9 * D09 - 9 * D17 + 9 * D19 + D21 - D25
+            : D10 + D16 - 10 * D17 + 10 * D19 - D02 - D20 + D22 - D24 + D04
+              - D06 + 10 * D07 - 10 * D09);
+        est(2, 5, change_dc
+            ? 2 * D07 - 5 * D08 + 2 * D09 + D11 + 7 * D12 - 14 * D13
+              + 7 * D14 + D15 + 2 * D17 - 5 * D18 + 2 * D19
+            : -D11 + 13 * D12 - 24 * D13 + 13 * D14 - D15);
+        if (change_dc) {
+          est(3, 6, D07 - D09 + 2 * D12 - 2 * D14 + D17 - D19);
+          est(10, 7, D07 - 3 * D08 + D09 - D17 + 3 * D18 - D19);
+          est(17, 8, D07 - D09 - 3 * D12 + 3 * D14 + D17 - D19);
+          est(24, 9, D07 + 2 * D08 + D09 - D17 - 2 * D18 - D19);
+          ws[0] = predict(q00, q00,
+                          -2 * D01 - 6 * D02 - 8 * D03 - 6 * D04 - 2 * D05
+                          - 6 * D06 + 6 * D07 + 42 * D08 + 6 * D09 - 6 * D10
+                          - 8 * D11 + 42 * D12 + 152 * D13 + 42 * D14
+                          - 8 * D15 - 6 * D16 + 6 * D17 + 42 * D18 + 6 * D19
+                          - 6 * D20 - 2 * D21 - 6 * D22 - 8 * D23 - 6 * D24
+                          - 2 * D25, 0, false);
+        }
+        idct_islow(ws, c.q, plane + static_cast<size_t>(y) * 8 * pw + bx * 8,
+                   pw);
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
+      }
+    }
+  }
+}
+
+// IDCT of every block of the image's components (smoothed where sm says
+// so), then upsampling and colour conversion into out (height * width * 3
+// RGB).
+void output_rgb(Image& im, uint8_t* out, const Smoothing* sm = nullptr) {
   std::vector<uint8_t> planes[3];
   for (int ci = 0; ci < im.ncomp; ++ci) {
     Component& c = im.comp[ci];
     const size_t pw = static_cast<size_t>(c.bw) * 8;
     planes[ci].assign(pw * c.bh * 8, 0);
+    if (sm) {
+      smooth_plane(c, sm->cur[ci], sm->prev[ci], *sm, planes[ci].data());
+      continue;
+    }
     for (int by = 0; by < c.bh; ++by)
       for (int bx = 0; bx < c.bw; ++bx)
         idct_islow(c.block(bx, by), c.q, planes[ci].data() + by * 8 * pw + bx * 8,
@@ -532,36 +792,53 @@ void output_rgb(Image& im, uint8_t* out) {
 }
 
 // ------------------------------------------------------ the file decoder
+struct Scan {
+  int n = 0;
+  int ci[4];
+  int td[4], ta[4];
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
+// jdmarker.c's markers and jdhuff.c's / jdphuff.c's scans, with what
+// libjpeg does where the data is corrupt and it only warns: a scan whose
+// data ends early or meets a marker fills with zero bits and leaves the
+// rest of its segment alone; a bad Huffman code reads as 0; restart
+// markers out of sequence are resynchronised (jpeg_resync_to_restart);
+// progressive scans out of order are decoded as they come; a component no
+// scan reached reads gray.
 struct Decoder {
-  Decoder(const uint8_t* d, size_t n) : data(d), len(n) {}
-  const uint8_t* data;
-  size_t len;
+  Decoder(const uint8_t* d, size_t n) : src{d, n} {}
+  Source src;
   size_t pos = 0;
+  int unread = 0;  // the marker the last scan's data stopped at
   Image im;
-  bool have_sof = false, progressive = false, jfif = false, adobe = false;
+  bool have_sof = false, progressive = false, arith = false, jfif = false,
+       adobe = false;
   int adobe_transform = -1;
+  bool multi_scan = false;  // jdinput.c's has_multiple_scans
+  // the arithmetic coder's conditioning of each table (DAC; SOI's defaults)
+  uint8_t dc_l[16], dc_u[16], ac_k[16];
   int restart_interval = 0;
   bool qdef[4] = {};
   uint16_t qt[4][64];
   HuffSpec dc[4], ac[4];
   bool std_tables_set = false;
   int scans = 0;
+  int last_good = 0;  // jdcoefct.c's last_good_iMCU_row
 
-  int u8() { return pos < len ? data[pos++] : -1; }
+  int u8() { return src.at(pos++); }
   int u16() {
-    const int a = u8(), b = u8();
-    return (a < 0 || b < 0) ? -1 : (a << 8) | b;
+    const int a = u8();
+    return (a << 8) | u8();
   }
 
   // libjpeg's next_marker: skip bytes up to FF, fill FFs, FF 00 pairs
   int next_marker() {
     for (;;) {
       int c = u8();
-      while (c >= 0 && c != 0xFF) c = u8();
-      if (c < 0) return -1;
+      while (c != 0xFF) c = u8();
       do c = u8();
       while (c == 0xFF);
-      if (c < 0) return -1;
       if (c != 0) return c;
     }
   }
@@ -569,7 +846,6 @@ struct Decoder {
   bool read_sof(int marker) {
     if (have_sof) return false;
     const int length = u16();
-    if (length < 8) return false;
     const int precision = u8();
     im.height = u16();
     im.width = u16();
@@ -577,7 +853,7 @@ struct Decoder {
     if (precision != 8 || im.height <= 0 || im.width <= 0
         || im.height > 65500 || im.width > 65500) return false;
     if (im.ncomp != 1 && im.ncomp != 3) return false;
-    if (length != 8 + im.ncomp * 3 || pos + im.ncomp * 3 > len) return false;
+    if (length != 8 + im.ncomp * 3) return false;
     for (int i = 0; i < im.ncomp; ++i) {
       Component& c = im.comp[i];
       c.id = u8();
@@ -585,11 +861,12 @@ struct Decoder {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = u8();
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return false;
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return false;
       im.max_h = std::max(im.max_h, c.h);
       im.max_v = std::max(im.max_v, c.v);
     }
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
     const int mcus_x = (im.width + im.max_h * 8 - 1) / (im.max_h * 8);
     const int mcus_y = (im.height + im.max_v * 8 - 1) / (im.max_v * 8);
     for (int i = 0; i < im.ncomp; ++i) {
@@ -603,6 +880,7 @@ struct Decoder {
       c.rows = mcus_y * c.v;
       c.coef.assign(static_cast<size_t>(c.stride) * c.rows * 64, 0);
       for (int& b : c.coef_bits) b = -1;
+      for (int& b : c.prev_bits) b = -1;
     }
     have_sof = true;
     return true;
@@ -610,90 +888,146 @@ struct Decoder {
 
   bool read_dqt() {
     int length = u16() - 2;
-    if (length < 0) return false;
     while (length > 0) {
+      --length;
       const int pq_tq = u8();
-      if (pq_tq < 0) return false;
       const int prec = pq_tq >> 4, n = pq_tq & 15;
-      if (n > 3 || prec > 1) return false;
-      const int need = 1 + 64 * (prec + 1);
-      if (length < need) return false;
-      for (int i = 0; i < 64; ++i) {
-        const int v = prec ? u16() : u8();
-        if (v < 0) return false;
-        qt[n][kNatural[i]] = static_cast<uint16_t>(v);
-      }
+      if (n > 3) return false;
+      for (int i = 0; i < 64; ++i)
+        qt[n][kNatural[i]] = static_cast<uint16_t>(prec ? u16() : u8());
       qdef[n] = true;
-      length -= need;
+      length -= prec ? 128 : 64;
     }
     return length == 0;
   }
 
   bool read_dht() {
     int length = u16() - 2;
-    if (length < 0) return false;
     while (length > 16) {
       int index = u8();
-      if (index < 0) return false;
       HuffSpec s;
       s.defined = true;
       int count = 0;
       for (int l = 1; l <= 16; ++l) {
-        const int b = u8();
-        if (b < 0) return false;
-        s.bits[l] = static_cast<uint8_t>(b);
-        count += b;
+        s.bits[l] = static_cast<uint8_t>(u8());
+        count += s.bits[l];
       }
       length -= 17;
       if (count > 256 || count > length) return false;
       for (int i = 0; i < count; ++i) s.vals[i] = static_cast<uint8_t>(u8());
       length -= count;
       const bool is_ac = index & 0x10;
-      index &= ~0x10;
+      if (is_ac) index -= 0x10;
       if (index > 3) return false;
       (is_ac ? ac : dc)[index] = s;
     }
     return length == 0;
   }
 
-  bool skip_segment() {
-    const int length = u16();
-    if (length < 2 || pos + length - 2 > len) return false;
-    pos += length - 2;
-    return true;
+  // DAC: the arithmetic coder's conditioning
+  bool read_dac() {
+    int length = u16() - 2;
+    while (length > 0) {
+      const int index = u8(), val = u8();
+      length -= 2;
+      if (index >= 32) return false;
+      if (index >= 16) {
+        ac_k[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l[index] = static_cast<uint8_t>(val & 15);
+        dc_u[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l[index] > dc_u[index]) return false;
+      }
+    }
+    return length == 0;
   }
 
-  bool read_app(int marker) {
-    const int length = u16();
-    if (length < 2 || pos + length - 2 > len) return false;
-    const uint8_t* p = data + pos;
-    const int n = length - 2;
-    if (marker == 0xE0 && n >= 14 && std::memcmp(p, "JFIF\0", 5) == 0)
+  void skip_segment() {
+    const int length = u16() - 2;
+    if (length > 0) pos += length;
+  }
+
+  // APPn: JFIF (APP0) and Adobe (APP14) are looked at in the first 14
+  // bytes, the rest skipped
+  void read_app(int marker) {
+    const int length = u16() - 2;
+    const int n = std::min(std::max(length, 0), 14);
+    uint8_t head[14];
+    for (int i = 0; i < n; ++i) head[i] = static_cast<uint8_t>(u8());
+    if (marker == 0xE0 && n >= 14 && std::memcmp(head, "JFIF\0", 5) == 0)
       jfif = true;
-    if (marker == 0xEE && n >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
+    if (marker == 0xEE && n >= 12 && std::memcmp(head, "Adobe", 5) == 0) {
       adobe = true;
-      adobe_transform = p[11];
+      adobe_transform = head[11];
     }
-    pos += n;
-    return true;
+    if (length > n) pos += length - n;
   }
 
   bool read_dri() {
     if (u16() != 4) return false;
     restart_interval = u16();
-    return restart_interval >= 0;
+    return true;
   }
 
+  // jdcoefct.c's smoothing_ok, with the coefficient bits it latches
+  bool smoothing(Smoothing* sm) const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int ci = 0; ci < im.ncomp; ++ci) {
+      const Component& c = im.comp[ci];
+      if (!c.latched) return false;
+      for (int p : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.q[p] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) {
+        sm->cur[ci][k] = c.coef_bits[k];
+        sm->prev[ci][k] = scans > 1 ? c.prev_bits[k] : -1;
+        useful = useful || c.coef_bits[k] != 0;
+      }
+    }
+    sm->total_rows = (im.height + im.max_v * 8 - 1) / (im.max_v * 8);
+    sm->last_good = last_good;
+    return useful;
+  }
+
+  void resync(size_t* rpos, int* marker, int* next_rst);
   bool read_sos();
+  bool arith_scan(const Scan& s, bool need_dc, bool need_ac, int mcus_x,
+                  int mcus_y, int mcu_rows_per_imcu);
   bool decode();
 };
 
-struct Scan {
-  int n = 0;
-  int ci[4];
-  int td[4], ta[4];
-  int ss = 0, se = 63, ah = 0, al = 0;
-};
+
+// jdmarker.c's read_restart_marker, for a reader at *rpos that stopped at
+// *marker (0: none yet): read the expected RSTn, or resynchronise as
+// jpeg_resync_to_restart does: a marker below SOF0 or one of the two RSTs
+// before the expected one is skipped for the next marker; another marker,
+// or one of the two RSTs after it, is left for later (the segment then
+// reads as empty); any other RST is taken.
+void Decoder::resync(size_t* rpos, int* marker, int* next_rst) {
+  auto scan_on = [&] {
+    pos = *rpos;
+    *marker = next_marker();
+    *rpos = pos;
+  };
+  if (!*marker) scan_on();
+  const int want = *next_rst;
+  auto rst = [](int k) { return 0xD0 + (k & 7); };
+  while (*marker != rst(want)) {
+    const int m = *marker;
+    if (m < 0xC0 || m == rst(want - 1) || m == rst(want - 2)) {
+      scan_on();
+    } else if (m < 0xD0 || m > 0xD7 || m == rst(want + 1)
+               || m == rst(want + 2)) {
+      break;
+    } else {
+      *marker = 0;
+      break;
+    }
+  }
+  if (*marker == rst(want)) *marker = 0;
+  *next_rst = (want + 1) & 7;
+}
 
 bool Decoder::read_sos() {
   if (!have_sof) return false;
@@ -704,7 +1038,6 @@ bool Decoder::read_sos() {
   s.n = n;
   for (int i = 0; i < n; ++i) {
     const int id = u8(), t = u8();
-    if (t < 0) return false;
     int found = -1;
     for (int k = 0; k < im.ncomp; ++k)
       if (im.comp[k].id == id) found = k;
@@ -714,19 +1047,35 @@ bool Decoder::read_sos() {
     s.ci[i] = found;
     s.td[i] = t >> 4;
     s.ta[i] = t & 15;
-    if (s.td[i] > 3 || s.ta[i] > 3) return false;
   }
   s.ss = u8();
   s.se = u8();
   const int a = u8();
-  if (a < 0) return false;
   s.ah = a >> 4;
   s.al = a & 15;
-  ++scans;
+  if (++scans == 1) {
+    // jdinput.c: a file whose first scan holds every component of a
+    // sequential frame has one scan; a second SOS is an error there
+    multi_scan = progressive || n < im.ncomp;
+    if (im.ncomp == 1) {
+      im.color = ColorSpace::kGray;
+    } else if (jfif) {
+      im.color = ColorSpace::kYCbCr;
+    } else if (adobe) {
+      im.color = adobe_transform == 0 ? ColorSpace::kRGB : ColorSpace::kYCbCr;
+    } else {
+      const int c0 = im.comp[0].id, c1 = im.comp[1].id, c2 = im.comp[2].id;
+      im.color = (c0 == 'R' && c1 == 'G' && c2 == 'B') ? ColorSpace::kRGB
+                                                       : ColorSpace::kYCbCr;
+    }
+  } else if (!multi_scan) {
+    return false;
+  }
 
-  // libjpeg-turbo fills Huffman slots 0 and 1 left empty by the first scan
-  // with the standard tables (Motion-JPEG files omit them)
-  if (!std_tables_set) {
+  // libjpeg-turbo's sequential decoder fills Huffman slots 0 and 1 left
+  // empty by the first scan with the standard tables (Motion-JPEG files
+  // omit them); its progressive decoder does not
+  if (!std_tables_set && !progressive && !arith) {
     std_tables_set = true;
     if (!dc[0].defined) dc[0] = std_spec(kDcLumBits, kDcVals);
     if (!ac[0].defined) ac[0] = std_spec(kAcLumBits, kAcLumVals);
@@ -742,13 +1091,14 @@ bool Decoder::read_sos() {
   for (int i = 0; i < n; ++i) {
     Component& c = im.comp[s.ci[i]];
     if (!c.latched) {
-      if (!qdef[c.tq]) return false;
+      if (c.tq > 3 || !qdef[c.tq]) return false;
       std::memcpy(c.q, qt[c.tq], sizeof c.q);
       c.latched = true;
     }
-    c.scanned = true;
   }
 
+  // a sequential scan with other Ss, Se, Ah, Al draws only a warning
+  // (JWRN_NOT_SEQUENTIAL) and decodes as a whole one
   const bool dc_scan = s.ss == 0;
   if (progressive) {
     bool bad = false;
@@ -760,41 +1110,42 @@ bool Decoder::read_sos() {
     if (s.ah != 0 && s.al != s.ah - 1) bad = true;
     if (s.al > 13) bad = true;
     if (bad) return false;
+    // the progression's order is only warned about (JWRN_BOGUS_PROGRESSION)
     for (int i = 0; i < n; ++i) {
-      int* cb = im.comp[s.ci[i]].coef_bits;
-      if (!dc_scan && cb[0] < 0) return false;
-      for (int k = s.ss; k <= s.se; ++k) {
-        const int expected = cb[k] < 0 ? 0 : cb[k];
-        if (s.ah != expected) return false;
-        cb[k] = s.al;
-      }
+      Component& c = im.comp[s.ci[i]];
+      for (int k = std::min(s.ss, 1); k <= std::max(s.se, 9); ++k)
+        c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+      for (int k = s.ss; k <= s.se; ++k) c.coef_bits[k] = s.al;
     }
-  } else if (s.ss != 0 || s.se != 63 || s.ah != 0 || s.al != 0) {
-    return false;
   }
 
-  HuffDecoder dct[4], act[4];
-  for (int i = 0; i < n; ++i) {
-    const bool need_dc = !progressive || (dc_scan && s.ah == 0);
-    const bool need_ac = !progressive || !dc_scan;
-    if (need_dc && !derive_decoder(dc[s.td[i]], true, &dct[i])) return false;
-    if (need_ac && !derive_decoder(ac[s.ta[i]], false, &act[i])) return false;
-  }
-
-  BitReader br{data, len, pos};
-  int last_dc[4] = {0, 0, 0, 0};
-  int eobrun = 0;
-  int restarts_left = restart_interval;
-  int next_rst = 0;
-
-  int mcus_x, mcus_y;
+  const bool need_dc = !progressive || (dc_scan && s.ah == 0);
+  const bool need_ac = !progressive || !dc_scan;
+  int mcus_x, mcus_y, mcu_rows_per_imcu = 1;
   if (n == 1) {
     mcus_x = im.comp[s.ci[0]].bw;
     mcus_y = im.comp[s.ci[0]].bh;
+    mcu_rows_per_imcu = im.comp[s.ci[0]].v;
   } else {
     mcus_x = (im.width + im.max_h * 8 - 1) / (im.max_h * 8);
     mcus_y = (im.height + im.max_v * 8 - 1) / (im.max_v * 8);
   }
+  if (arith) return arith_scan(s, need_dc, need_ac, mcus_x, mcus_y,
+                               mcu_rows_per_imcu);
+
+  HuffDecoder dct[4], act[4];
+  for (int i = 0; i < n; ++i) {
+    if (need_dc && (s.td[i] > 3 || !derive_decoder(dc[s.td[i]], true, &dct[i])))
+      return false;
+    if (need_ac && (s.ta[i] > 3 || !derive_decoder(ac[s.ta[i]], false, &act[i])))
+      return false;
+  }
+
+  BitReader br{src, pos};
+  int last_dc[4] = {0, 0, 0, 0};
+  int eobrun = 0;
+  int restarts_left = restart_interval;
+  int next_rst = 0;
   const int p1 = 1 << s.al;
   const int m1 = -(1 << s.al);
 
@@ -853,7 +1204,8 @@ bool Decoder::read_sos() {
       }
       return;
     }
-    // AC refinement
+    // AC refinement; a new coefficient of another size than 1 is only
+    // warned about (JWRN_HUFF_BAD_CODE)
     int k = s.ss;
     if (eobrun == 0) {
       for (; k <= s.se; ++k) {
@@ -861,7 +1213,6 @@ bool Decoder::read_sos() {
         int r = rs >> 4;
         int sz = rs & 15;
         if (sz) {
-          if (sz != 1) br.bad = true;
           sz = br.bit() ? p1 : m1;
         } else if (r != 15) {
           eobrun = 1 << r;
@@ -879,7 +1230,6 @@ bool Decoder::read_sos() {
           ++k;
         } while (k <= s.se);
         if (sz) blk[kNatural[k]] = static_cast<int16_t>(sz);
-        if (br.bad) return;
       }
     }
     if (eobrun > 0) {
@@ -894,19 +1244,20 @@ bool Decoder::read_sos() {
 
   for (int my = 0; my < mcus_y; ++my) {
     for (int mx = 0; mx < mcus_x; ++mx) {
+      if (!br.insufficient) last_good = my / mcu_rows_per_imcu;
       if (restart_interval) {
         if (restarts_left == 0) {
-          br.reset();
-          pos = br.pos;
-          if (next_marker() != 0xD0 + next_rst) return false;
-          next_rst = (next_rst + 1) & 7;
-          br.pos = pos;
+          br.discard();  // jdhuff.c's process_restart
+          resync(&br.pos, &br.marker, &next_rst);
           for (int& d : last_dc) d = 0;
           eobrun = 0;
           restarts_left = restart_interval;
+          // the flag stays where the RST left the reader at a marker
+          if (!br.marker) br.insufficient = false;
         }
         --restarts_left;
       }
+      if (br.insufficient) continue;  // the MCU keeps what it has
       if (n == 1) {
         decode_block(0, im.comp[s.ci[0]].block(mx, my));
       } else {
@@ -917,31 +1268,215 @@ bool Decoder::read_sos() {
               decode_block(i, c.block(mx * c.h + xx, my * c.v + yy));
         }
       }
-      if (br.bad) return false;
     }
   }
   pos = br.pos;
+  unread = br.marker;
+  return true;
+}
+
+// jdarith.c's scans: T.81 F.1.4.4 (sequential) and G.1.3 (progressive),
+// the statistics bins of each table zeroed at the scan's start and at each
+// restart
+bool Decoder::arith_scan(const Scan& s, bool need_dc, bool need_ac,
+                         int mcus_x, int mcus_y, int mcu_rows_per_imcu) {
+  const int n = s.n;
+  for (int i = 0; i < n; ++i)
+    if ((need_dc && s.td[i] > 15) || (need_ac && s.ta[i] > 15)) return false;
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+  int last_dc[4] = {0, 0, 0, 0};
+  int dc_context[4] = {0, 0, 0, 0};
+  auto reset_stats = [&] {
+    for (int i = 0; i < n; ++i) {
+      if (need_dc) {
+        std::memset(dc_stats[s.td[i]], 0, sizeof dc_stats[0]);
+        last_dc[i] = dc_context[i] = 0;
+      }
+      if (!progressive || s.ss) std::memset(ac_stats[s.ta[i]], 0, sizeof ac_stats[0]);
+    }
+  };
+  reset_stats();
+  ArithReader ar{src, pos};
+  const int p1 = 1 << s.al;
+  const int m1 = -(1 << s.al);
+
+  // Figures F.19, F.21-F.24: a DC difference into last_dc[i]; false where
+  // its magnitude overflows
+  auto dc_diff = [&](int i) -> bool {
+    const int tbl = s.td[i];
+    uint8_t* st = dc_stats[tbl] + dc_context[i];
+    if (ar.decode(st) == 0) {
+      dc_context[i] = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = dc_stats[tbl] + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < ((1 << dc_l[tbl]) >> 1))
+      dc_context[i] = 0;
+    else if (m > ((1 << dc_u[tbl]) >> 1))
+      dc_context[i] = 12 + sign * 4;
+    else
+      dc_context[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[i] = (last_dc[i] + v) & 0xffff;
+    return true;
+  };
+  // Figure F.20: AC coefficients k0..k1 of a block, scaled by al; false
+  // where the band or a magnitude overflows
+  auto ac_band = [&](int i, int16_t* blk, int k0, int k1, int al) -> bool {
+    const int tbl = s.ta[i];
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) {
+          ar.ct = -1;
+          return false;
+        }
+      }
+      const int sign = ar.decode(&fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= ac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    }
+    return true;
+  };
+  // Figure G.10 as jdarith.c has it: correction bits of the coefficients
+  // already nonzero, new ones of +-2^al
+  auto ac_refine = [&](int i, int16_t* blk) {
+    const int tbl = s.ta[i];
+    int kex = s.se;
+    while (kex > 0 && !blk[kNatural[kex]]) --kex;
+    for (int k = s.ss; k <= s.se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2))
+            *coef = static_cast<int16_t>(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = static_cast<int16_t>(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > s.se) {
+          ar.ct = -1;
+          return;
+        }
+      }
+    }
+  };
+  // one block; false where the rest of the MCU is to be left alone
+  auto decode_block = [&](int i, int16_t* blk) -> bool {
+    if (!progressive) {
+      if (!dc_diff(i)) return false;
+      blk[0] = static_cast<int16_t>(last_dc[i]);
+      return ac_band(i, blk, 1, 63, 0);
+    }
+    if (s.ss == 0 && s.ah == 0) {
+      if (!dc_diff(i)) return false;
+      blk[0] = static_cast<int16_t>(static_cast<uint32_t>(last_dc[i]) << s.al);
+      return true;
+    }
+    if (s.ss == 0) {
+      if (ar.decode(&fixed_bin)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+      return true;
+    }
+    if (s.ah == 0) return ac_band(i, blk, s.ss, s.se, s.al);
+    ac_refine(i, blk);
+    return ar.ct != -1;
+  };
+
+  int restarts_left = restart_interval;
+  int next_rst = 0;
+  for (int my = 0; my < mcus_y; ++my) {
+    for (int mx = 0; mx < mcus_x; ++mx) {
+      last_good = my / mcu_rows_per_imcu;  // the data is never insufficient
+      if (restart_interval) {
+        if (restarts_left == 0) {
+          resync(&ar.pos, &ar.marker, &next_rst);
+          reset_stats();
+          ar.reset();
+          restarts_left = restart_interval;
+        }
+        --restarts_left;
+      }
+      if (ar.ct == -1) continue;
+      if (n == 1) {
+        decode_block(0, im.comp[s.ci[0]].block(mx, my));
+        continue;
+      }
+      bool go = true;
+      for (int i = 0; i < n && go; ++i) {
+        Component& c = im.comp[s.ci[i]];
+        for (int yy = 0; yy < c.v && go; ++yy)
+          for (int xx = 0; xx < c.h && go; ++xx)
+            go = decode_block(i, c.block(mx * c.h + xx, my * c.v + yy));
+      }
+    }
+  }
+  pos = ar.pos;
+  unread = ar.marker;
   return true;
 }
 
 bool Decoder::decode() {
-  if (len < 2 || data[0] != 0xFF || data[1] != 0xD8) return false;
+  if (src.len < 2 || src.data[0] != 0xFF || src.data[1] != 0xD8) return false;
   pos = 2;
+  for (int t = 0; t < 16; ++t) {
+    dc_l[t] = 0;
+    dc_u[t] = 1;
+    ac_k[t] = 5;
+  }
   for (;;) {
-    const int m = next_marker();
-    if (m < 0) {  // the data ended without EOI
-      if (scans == 0) return false;
-      break;
-    }
-    if (m == 0xD9) {
-      if (scans == 0) return false;
-      break;
-    }
+    const int m = unread ? unread : next_marker();
+    unread = 0;
+    if (m == 0xD9) return scans > 0;  // EOI, real or at the end of the data
     bool ok = true;
     switch (m) {
       case 0xC0:
       case 0xC1:
       case 0xC2:
+      case 0xC9:
+      case 0xCA:
         ok = read_sof(m);
         break;
       case 0xC4:
@@ -956,17 +1491,19 @@ bool Decoder::decode() {
       case 0xDA:
         ok = read_sos();
         break;
+      case 0xCC:
+        ok = read_dac();
+        break;
       case 0xFE:
-      case 0xCC:  // DAC: conditioning of the arithmetic coder, unused here
       case 0xDC:  // DNL
-        ok = skip_segment();
+        skip_segment();
         break;
       case 0xD8:
         ok = false;
         break;
       default:
         if (m >= 0xE0 && m <= 0xEF) {
-          ok = read_app(m);
+          read_app(m);
         } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
           ok = true;  // a stray RSTn or TEM: no parameters
         } else {
@@ -975,27 +1512,6 @@ bool Decoder::decode() {
     }
     if (!ok) return false;
   }
-  for (int i = 0; i < im.ncomp; ++i) {
-    const Component& c = im.comp[i];
-    if (!c.scanned) return false;
-    if (progressive) {
-      if (c.coef_bits[0] < 0) return false;
-      for (int k = 1; k < 10; ++k)
-        if (c.coef_bits[k] != 0) return false;
-    }
-  }
-  if (im.ncomp == 1) {
-    im.color = ColorSpace::kGray;
-  } else if (jfif) {
-    im.color = ColorSpace::kYCbCr;
-  } else if (adobe) {
-    im.color = adobe_transform == 0 ? ColorSpace::kRGB : ColorSpace::kYCbCr;
-  } else {
-    const int a = im.comp[0].id, b = im.comp[1].id, c = im.comp[2].id;
-    im.color = (a == 'R' && b == 'G' && c == 'B') ? ColorSpace::kRGB
-                                                  : ColorSpace::kYCbCr;
-  }
-  return true;
 }
 
 // ------------------------------------------------------------ JPEG encoding
@@ -1149,7 +1665,7 @@ void encode_coefficients(const uint8_t* rgb, int h, int w, int quality,
     c.rows = mcus_y * c.v;
     c.coef.assign(static_cast<size_t>(c.stride) * c.rows * 64, 0);
     std::memcpy(c.q, e->qt[c.tq], sizeof c.q);
-    c.latched = c.scanned = true;
+    c.latched = true;
   }
   // colour conversion into full-size planes, the right edge replicated out
   // to the blocks' width (luma) and to twice the chroma blocks' width
@@ -1485,10 +2001,12 @@ int dg_decode(const uint8_t* data, size_t len, uint8_t** out, int* h,
     return -2;
   Decoder d{data, len};
   if (!d.decode()) return -1;
+  Smoothing sm;
+  const bool smooth = d.smoothing(&sm);
   *out = static_cast<uint8_t*>(std::malloc(
       static_cast<size_t>(d.im.height) * d.im.width * 3));
   if (*out == nullptr) return -1;
-  output_rgb(d.im, *out);
+  output_rgb(d.im, *out, smooth ? &sm : nullptr);
   *h = d.im.height;
   *w = d.im.width;
   return 0;

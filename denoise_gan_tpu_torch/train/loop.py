@@ -179,6 +179,26 @@ def resume_step(manager: CheckpointManager | None, mesh) -> int | None:
     return latest
 
 
+def batch_split(batch_size: int, hosts: int, ranks: int) -> tuple[int, bool]:
+    """The global batch (`batch_size` a host) and whether the ranks split
+    it, by the JAX loop's rule: a global batch the ranks do not divide
+    raises a ValueError, except a batch of one on one host, which trains
+    as one device would (every rank steps the same batch unsplit, so the
+    ranks stay equal)."""
+    global_bs = batch_size * hosts
+    if global_bs % ranks:
+        if hosts > 1:
+            raise ValueError(
+                f"multi-host training requires the global batch "
+                f"({batch_size} per host x {hosts} hosts = "
+                f"{global_bs}) to be divisible by the {ranks} devices; "
+                "adjust --batch_size")
+        if batch_size > 1:
+            raise ValueError(
+                f"global batch {global_bs} not divisible by {ranks} devices")
+    return global_bs, global_bs % ranks == 0
+
+
 def train(cfg: TrainConfig, family: str) -> GANTrainState:
     """A whole run on ``cfg.device`` (under torchrun: this rank's part of
     it); returns the final state."""
@@ -186,16 +206,7 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
     mesh = make_mesh(cfg.num_devices, device=cfg.device)
     dev, ranks = mesh.device, mesh.size
     primary = mesh.rank == 0
-    global_bs = cfg.batch_size * mesh.hosts
-    if global_bs % ranks:
-        if mesh.hosts > 1:
-            raise ValueError(
-                f"multi-host training requires the global batch "
-                f"({cfg.batch_size} per host x {mesh.hosts} hosts = "
-                f"{global_bs}) to be divisible by the {ranks} devices; "
-                "adjust --batch_size")
-        raise ValueError(
-            f"global batch {global_bs} not divisible by {ranks} devices")
+    global_bs, split = batch_split(cfg.batch_size, mesh.hosts, ranks)
 
     ckpt_dir = get_path("models/checkpoints", cfg.model_name)
     backup_dir = get_path("models/backups", cfg.model_name)
@@ -204,10 +215,12 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
         os.makedirs(backup_dir, exist_ok=True)
         os.makedirs(cfg.logdir, exist_ok=True)
 
-    # each rank's shard of the files and its rows of the global batch
-    pipeline = DataPipeline(
-        dataclasses.replace(cfg, batch_size=global_bs // ranks),
-        process_index=mesh.rank, process_count=ranks)
+    if split:   # each rank's shard of the files and its rows of the batch
+        pipeline = DataPipeline(
+            dataclasses.replace(cfg, batch_size=global_bs // ranks),
+            process_index=mesh.rank, process_count=ranks)
+    else:       # a batch of one: every rank reads all the files
+        pipeline = DataPipeline(cfg)
     steps_per_epoch = len(pipeline)
     if steps_per_epoch == 0:
         pipeline.close()
@@ -249,7 +262,7 @@ def train(cfg: TrainConfig, family: str) -> GANTrainState:
             state = warm_start_from_exports(state, cfg.model_name)
         replicated([state.gen.model, state.disc.model], mesh)
 
-        step_fn = build_train_step(bundle, cfg, mesh=mesh)
+        step_fn = build_train_step(bundle, cfg, mesh=mesh if split else None)
         summary_fn = build_summary_fn(bundle, cfg)
         rng = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         timer = state.timer = StepTimer(global_bs)

@@ -53,6 +53,7 @@ def _sources():
         REPO / "tests" / "torch_side_quality.py",
         REPO / "tests" / "torch_side_export_h5.py",
         REPO / "tests" / "torch_side_codec.py",
+        REPO / "tests" / "torch_side_natural.py",
         REPO / "tests" / "codec_seeds.py"]
 
 

@@ -15,7 +15,9 @@ values.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import os
 import pickle
 import tempfile
@@ -37,6 +39,7 @@ from denoise_gan_tpu_torch.models.vgg import VGG19Features
 from denoise_gan_tpu_torch.parallel import dryrun
 from denoise_gan_tpu_torch.parallel import mesh as tmesh
 from denoise_gan_tpu_torch.parallel import spatial
+from denoise_gan_tpu_torch.train import loop as tloop
 from denoise_gan_tpu_torch.train.loop import resume_step
 from denoise_gan_tpu_torch.train.state import create_train_state
 from denoise_gan_tpu_torch.train.step import build_train_step
@@ -69,9 +72,10 @@ def _digest(*modules: torch.nn.Module) -> str:
 
 def _step(family, crop, inputs, mesh):
     """One port step (degrade=False, f32, CPU) from the Flax trees on this
-    rank's rows of the global pair: metrics, the gradients recovered from
-    Adam's first moments and the new statistics as Flax trees, and the
-    digest of the nets after the step."""
+    rank's rows of the global pair (the whole pair, unsplit, where `mesh`
+    is None): metrics, the gradients recovered from Adam's first moments
+    and the new statistics as Flax trees, and the digest of the nets after
+    the step."""
     gen, disc, vgg_params, img_in, img_tgt = inputs
     cfg = tconfig.make_config(family, crop_size=crop, device="cpu")
     bundle = build_models(family, scale=cfg.scale)
@@ -81,8 +85,9 @@ def _step(family, crop, inputs, mesh):
     vgg = from_jax_params(VGG19Features(), vgg_params).eval()
     vgg.requires_grad_(False)
     step = build_train_step(bundle, cfg, degrade=False, mesh=mesh)
-    metrics = step(state, vgg, tmesh.shard_batch((_t(img_in), _t(img_tgt)),
-                                                 mesh))
+    pair = (_t(img_in), _t(img_tgt))
+    metrics = step(state, vgg, pair if mesh is None
+                   else tmesh.shard_batch(pair, mesh))
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "step": state.step,
            "digest": _digest(state.gen.model, state.disc.model)}
@@ -264,6 +269,55 @@ def _spawn(target, payload) -> list[dict]:
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out
+
+
+def _trainer(family, argv, workdir) -> dict:
+    """The trainer's main(argv) in `workdir`: the nets' digest, the steps
+    and the stdout."""
+    old = os.getcwd()
+    os.chdir(workdir)
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = tloop.main(family, argv)
+        return {"digest": _digest(state.gen.model, state.disc.model),
+                "step": state.step, "stdout": out.getvalue()}
+    finally:
+        os.chdir(old)
+
+
+def _batch_one_rank(rank: int, store: str, payload: dict, out_dir: str
+                    ) -> None:
+    """One rank of a --batch_size 1 run (train/loop.py's fallback: each
+    rank steps the same batch unsplit) and the unsplit step on the JAX
+    step's inputs; rank 0 then runs the trainer once more on one process,
+    with the same threads, in a directory of its own."""
+    tmesh.init_distributed(device="cpu", init_method=f"file://{store}",
+                           rank=rank, world_size=RANKS,
+                           timeout_s=RANK_TIMEOUT_S)
+    family, argv = payload["family"], payload["argv"]
+    out = {"run": _trainer(family, argv, payload["workdir"]),
+           "step": _step(family, payload["crop"], payload["inputs"], None)}
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        out["one_process"] = _trainer(family, argv, payload["one_dir"])
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def batch_one_ranks(payload: dict) -> list[dict]:
+    """Each rank's results of a --batch_size 1 run on two ranks (see
+    _batch_one_rank)."""
+    return _spawn(_batch_one_rank, payload)
+
+
+def batch_split(batch_size, hosts, ranks):
+    """train/loop.py::batch_split: (global batch, split), or the
+    ValueError's message."""
+    try:
+        return tloop.batch_split(batch_size, hosts, ranks)
+    except ValueError as exc:
+        return str(exc)
 
 
 def one_process_step(family, crop, inputs):
